@@ -7,25 +7,58 @@ Needs one CUDA card and ``nvcc``; imports nothing of JAX.  Phases, each of
 which stops the script with a non-zero exit if it fails:
 
 1. device: the card's name and power limit (``nvidia-smi``);
-2. build: ``csrc/infonce.cu`` with ``nvcc`` for ``sm_90a`` (the ptxas
-   report on one line, the build seconds);
-3. kernels vs plain: the InfoNCE forward and backward kernels against
+2. build: ``csrc/infonce.cu`` and ``csrc/gram.cu`` with ``nvcc`` for
+   ``sm_90a``, both compilers started together (the ptxas reports on one
+   line each, the build seconds);
+3. InfoNCE kernels vs plain: the forward and backward kernels against
    their plain PyTorch versions at the CPC path's shape (D=4096, P=9), at
    D=8/P=1, D=4099/P=130, D=256/P=1000 and with an all-zero column in Z
    and in Zhat; then, at the path's shape, the time per call of kernel
    and plain version from CUDA events around 200 back-to-back calls
    (``ms``, host launch cost included), the kernels' device time from
    ``torch.profiler`` (``device_ms``), and the card's bound;
-4. the slice at full width: ``drivers.federated_cpc`` with its defaults
+4. Gram kernel vs plain: ``gram`` against ``gram_plain`` at [10, 928] (the
+   ResNet18 stem block's shard), [10, 2,360,320] (the largest block's
+   shard), [1, 1], [3, 513], [16, 100,003], [128, 4,096] and a slab with
+   an all-zero row, within ``|kernel - plain| <= 1e-5 * max_i G_ii + 1e-6``;
+   then at the largest shard the time per call of the kernel, the plain
+   version and ``torch.matmul(a, a.T)`` (TF32 off; the library yardstick),
+   the kernel's device time and the bound;
+5. slice 1 at full width: ``drivers.federated_cpc`` with its defaults
    (K=4, Lc=256, Rc=32, batch 128, patch 32, Niter=10, Nloop=1, Nadmm=1:
-   one rotation of 4 communication rounds), with the launch counts set to
-   0 just before and read just after; every round's loss and dual residual
-   finite, every trained block changed, both kernels launched;
-5. the path's own data: the CPC loss and its gradient in the predictor's
+   one rotation of 4 communication rounds; nothing cut), with the InfoNCE
+   launch counts set to 0 just before and read just after; every round's
+   loss and dual residual finite, every trained block changed, both
+   kernels launched;
+6. slice 1's own data: the CPC loss and its gradient in the predictor's
    flat vector, at the initial weights and one real minibatch, through the
    kernels and through the plain versions;
-6. a profile of one L-BFGS step per sub-model at full width: host wall
-   time, device busy time and the InfoNCE kernels' share (printed only).
+7. a profile of one L-BFGS step per CPC sub-model at full width: host wall
+   time, device busy time and the InfoNCE kernels' share (printed only);
+8. slice 2 at full width: ``drivers.consensus_multi`` (ADMM consensus,
+   ResNet18, K=10 clients, batch 128, float32, krum with
+   ``--robust-chunked`` over a 2-shard client mesh), with the Gram launch
+   count set to 0 just before and read just after.  Cut: Nloop 12 -> 1 and
+   Nadmm 5 -> 2 (one rotation over the 10 blocks, 20 rounds), 1,280
+   training images per client instead of 5,000, 1,000 test images; the
+   data is the synthetic CIFAR-10 (the dataset is not in the repository).
+   Every round's loss and residuals finite, every block changed, the Gram
+   kernel launched in every round;
+9. slice 2's own data: at the largest block's ([54,59], N = 4,720,640)
+   first comm round, the real ``y + rho*x`` stack's shard Grams through
+   the kernel and through ``gram_plain`` within the tolerance of phase 4,
+   and krum's selection both ways.  Selections that differ fail, unless
+   the float32 tie band of a score reaches the spread of all the scores:
+   then krum is undecidable in float32 on that stack (on the synthetic
+   data the clients move alike), which is printed as "undecided" and not
+   counted as a pass.  Then the same stack with f clients (krum's
+   attacker count) moved away, by a seeded offset that clears the others'
+   scores by at least 100 tie bands: the shard Grams within tolerance,
+   krum dropping exactly the moved clients through the kernel and through
+   ``gram_plain`` alike, and the engine's krum estimate equal to the kept
+   clients' mean;
+10. a profile of one Adam step of all K clients on the stem block and on
+    the largest block (printed only).
 
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -58,6 +91,28 @@ BWD_RTOL, BWD_ATOL_REL = 1e-4, 1e-5
 #: the CPC loss through kernels vs plain versions, and its gradient
 LOSS_RTOL = 1e-5
 GRAD_RTOL, GRAD_ATOL_REL = 1e-4, 1e-5
+#: Gram: |kernel - plain| <= GRAM_REL * max_i G_ii + GRAM_ABS.  Both sum
+#: float32 products in different orders; every entry is bounded by the
+#: largest diagonal entry (Cauchy-Schwarz), so that sets the rounding scale.
+GRAM_REL, GRAM_ABS = 1e-5, 1e-6
+#: the Gram shapes: the stem and largest shards of ResNet18 at D=2, then
+#: edge cases
+GRAM_SHAPES = ((10, 928), (10, 2_360_320), (1, 1), (3, 513), (16, 100_003),
+               (128, 4096))
+GRAM_PATH_SHAPE = (10, 2_360_320)
+#: slice 2 as chip_smoke drives it (see the module docstring for the cuts)
+SLICE2_ARGV = ["--device", "cuda", "--model", "resnet18", "--robust-agg",
+               "krum", "--robust-chunked", "--num-devices", "2", "--Nloop",
+               "1", "--Nadmm", "2", "--n-train", "1280", "--n-test", "1000"]
+SLICE2_ROUNDS = 20
+LARGEST_BLOCK_N = 4_720_640
+#: phase 9's separated case: each moved client's offset has squared norm
+#: OUTLIER_SCALE2 * max G_ii, and the moved clients' krum scores must clear
+#: the others' by SEPARATION float32 tie bands
+OUTLIER_SCALE2, SEPARATION = 0.1, 100.0
+#: the krum estimate vs a plain mean of the kept rows (float32, 9 rows
+#: summed in another order): |est - mean| <= KRUM_MEAN_REL * max |kept rows|
+KRUM_MEAN_REL = 1e-5
 
 
 def log(msg: str) -> None:
@@ -149,15 +204,22 @@ def check_device():
 
 
 def build() -> None:
-    """Phase 2."""
+    """Phase 2: one nvcc per source, all started together."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from federated_pytorch_test_tpu_torch.ops import cuda_build
 
+    names = ("infonce", "gram")
     t0 = time.perf_counter()
-    cuda_build.load_library("infonce")
-    info = cuda_build.BUILD_INFO["infonce"]
-    log(f"build: infonce.cu in {time.perf_counter() - t0:.2f} s "
-        f"(nvcc {info['seconds']:.2f} s) -> {info['path']}")
-    log(f"ptxas: {info['ptxas']}")
+    with ThreadPoolExecutor(len(names)) as pool:
+        for f in [pool.submit(cuda_build.load_library, n) for n in names]:
+            f.result()
+    log(f"build: {', '.join(n + '.cu' for n in names)} in "
+        f"{time.perf_counter() - t0:.2f} s")
+    for n in names:
+        info = cuda_build.BUILD_INFO[n]
+        log(f"build {n}: nvcc {info['seconds']:.2f} s -> {info['path']}")
+        log(f"ptxas {n}: {info['ptxas']}")
 
 
 def check_kernels(dev, card: str):
@@ -229,8 +291,70 @@ def check_kernels(dev, card: str):
     return path_err, timing, device
 
 
+def gram_within(got, want) -> tuple:
+    """(max |got - want|, tolerance, whether every entry is within it)."""
+    tol = GRAM_REL * float(want.diagonal().max()) + GRAM_ABS
+    err = float((got - want).abs().max())
+    return err, tol, err <= tol and bool(got.isfinite().all())
+
+
+def gram_bound(K: int, n: int) -> tuple:
+    """(bytes, flops) of A.A^T for A [K, n] float32: A read once, G written
+    once; 2*K^2*n operations for the product."""
+    return (K * n + K * K) * 4, 2 * K * K * n
+
+
+def check_gram(dev, card: str):
+    """Phase 4; returns (max_abs_err at the path's shape,
+    (kernel_ms, plain_ms, library_ms, (bound_ms, bound_by)), device_ms)."""
+    import torch
+
+    from federated_pytorch_test_tpu_torch.ops import gram
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    path_err = None
+    cases = [(K, n, False) for K, n in GRAM_SHAPES] + [(10, 100_003, True)]
+    for K, n, zero in cases:
+        a = torch.randn(K, n, generator=gen, device=dev)
+        if zero:
+            a[4] = 0.0
+        g_k = gram.gram(a)
+        g_p = gram.gram_plain(a)
+        repeat = torch.equal(g_k, gram.gram(a))
+        torch.cuda.synchronize()
+        err, tol, ok = gram_within(g_k, g_p)
+        log(f"gram check K={K} n={n} zero_row={zero}: max_abs_err={err:.3e} "
+            f"tol={tol:.3e} symmetric={torch.equal(g_k, g_k.t())} "
+            f"repeats={repeat}")
+        if not (ok and repeat and torch.equal(g_k, g_k.t())):
+            fail(f"gram kernel disagrees with gram_plain (or is not symmetric "
+                 f"or not repeatable) at K={K} n={n} zero_row={zero}")
+        if zero and not (g_k[4].eq(0).all() and g_k[:, 4].eq(0).all()):
+            fail("gram of a zero row is not a zero row and column")
+        if (K, n) == GRAM_PATH_SHAPE:
+            path_err = err
+
+    K, n = GRAM_PATH_SHAPE
+    a = torch.randn(K, n, generator=gen, device=dev)
+    k_ms = cuda_time_ms(lambda: gram.gram(a), iters=100, warmup=10)
+    p_ms = cuda_time_ms(lambda: gram.gram_plain(a), iters=3, warmup=1)
+    l_ms = cuda_time_ms(lambda: torch.matmul(a, a.t()), iters=100, warmup=10)
+    device_ms = profiled_device_ms(lambda: gram.gram(a), "gram_")
+    b = bound_ms(*gram_bound(K, n))
+    stem = torch.randn(10, 928, generator=gen, device=dev)
+    stem_ms = cuda_time_ms(lambda: gram.gram(stem))
+    stem_lib = cuda_time_ms(lambda: torch.matmul(stem, stem.t()))
+    log(json.dumps({"kernel": "gram", "K": K, "n": n, "kernel_ms": k_ms,
+                    "device_ms": device_ms, "plain_ms": p_ms,
+                    "library_ms": l_ms, "bound_ms": b[0], "bound_by": b[1],
+                    "stem_kernel_ms": stem_ms, "stem_library_ms": stem_lib,
+                    "stem_bound_ms": bound_ms(*gram_bound(10, 928))[0],
+                    "card": card}))
+    return path_err, (k_ms, p_ms, l_ms, b), device_ms
+
+
 def run_slice(dev):
-    """Phase 4; returns (trainer, launches on the main path)."""
+    """Phase 5; returns (trainer, launches on the main path)."""
     import torch
 
     from federated_pytorch_test_tpu_torch.drivers import federated_cpc
@@ -312,7 +436,7 @@ def profile_steps(trainer) -> None:
 
 
 def check_path_data(trainer) -> None:
-    """Phase 5: loss and predictor gradient, kernels vs plain versions."""
+    """Phase 6: loss and predictor gradient, kernels vs plain versions."""
     from federated_pytorch_test_tpu_torch.ops import infonce
     from federated_pytorch_test_tpu_torch.optim.lbfgs import value_and_grad
     from federated_pytorch_test_tpu_torch.train.cpc_engine import client_params
@@ -339,6 +463,227 @@ def check_path_data(trainer) -> None:
              "plain versions on the path's data")
 
 
+def run_slice2(dev):
+    """Phase 8; returns (the Gram launches of the run, the captured
+    ``y + rho*x`` stack of the largest block's first comm round)."""
+    import torch
+
+    from federated_pytorch_test_tpu_torch.drivers import consensus_multi
+    from federated_pytorch_test_tpu_torch.ops import gram
+    from federated_pytorch_test_tpu_torch.parallel import comm
+    from federated_pytorch_test_tpu_torch.utils import codec
+
+    captured = {}
+    chunked = comm.robust_federated_mean_chunked
+
+    def capture(x, w=None, **kw):
+        # the engine's krum estimator sees the ADMM stack y + rho*x itself
+        if x.shape[1] == LARGEST_BLOCK_N and "stack" not in captured:
+            captured["stack"] = x.detach().clone()
+        return chunked(x, w, **kw)
+
+    comm.robust_federated_mean_chunked = capture
+    try:
+        gram.LAUNCHES["gram"] = 0
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        trainer, state, history = consensus_multi.main(SLICE2_ARGV, log=log)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = gram.LAUNCHES["gram"]
+    finally:
+        comm.robust_federated_mean_chunked = chunked
+    log(f"slice 2: {len(history)} rounds in {wall:.2f} s, gram launches "
+        f"{launches}, max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated(dev)} B")
+    for rec in history:
+        log(json.dumps({k: rec[k] for k in (
+            "block", "nadmm", "N", "loss", "dual_residual", "primal_residual",
+            "round_seconds", "stage_seconds", "train_seconds", "comm_seconds",
+            "kernel_launches")}))
+    if len(history) != SLICE2_ROUNDS:
+        fail(f"expected {SLICE2_ROUNDS} rounds, got {len(history)}")
+    for rec in history:
+        if not all(np.isfinite(rec[k]) for k in
+                   ("loss", "dual_residual", "primal_residual")):
+            fail(f"non-finite loss or residual: {rec}")
+        if rec["kernel_launches"]["gram"] < 1:
+            fail(f"the Gram kernel was not launched in round {rec}")
+    if launches < len(history):
+        fail(f"gram launched {launches} times over {len(history)} rounds")
+    for ci in range(trainer.L):
+        mask = trainer.mask_for_block(ci)
+        before = codec.get_trainable_stack(trainer.params0, trainer.order, mask)
+        after = codec.get_trainable_stack(state.params, trainer.order, mask)
+        if torch.equal(before, after):
+            fail(f"block {ci} did not change")
+    if "stack" not in captured:
+        fail("the largest block's comm round was not reached")
+    return launches, captured["stack"], trainer, state
+
+
+def profile_slice2(trainer, state) -> None:
+    """Phase 10 (printed only): one Adam step of all K clients on the stem
+    block [0,2] and on the largest block [54,59] under ``torch.profiler``
+    (CUDA activity): host wall time, device busy time and idle share, the
+    top kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from federated_pytorch_test_tpu_torch.train.engine import (
+        AdamState,
+        ClientState,
+    )
+
+    K = trainer.cfg.K
+    xb, yb, wb = trainer._stage_epoch(last=True)
+    xb, yb, wb = xb[:, :1], yb[:, :1], wb[:, :1]
+    for ci in (0, 8):
+        N = trainer.block_size(ci)
+        zeros = torch.zeros(K, N, device=trainer.device)
+        st = ClientState(state.params, state.batch_stats,
+                         AdamState(zeros, zeros.clone(), 0))
+        args = (ci, zeros, zeros[0], torch.tensor(0.1, device=trainer.device),
+                xb, yb, wb)
+        trainer.train_epoch(st, *args)                  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            trainer.train_epoch(st, *args)
+            torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        ev = prof.key_averages()
+        busy_ms = sum(e.self_device_time_total for e in ev) / 1e3
+        top = sorted(ev, key=lambda e: -e.self_device_time_total)[:5]
+        log(json.dumps({
+            "profile_step": f"classifier block {ci}", "N": N, "clients": K,
+            "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "device_idle_share": (1.0 - busy_ms / wall_ms) if wall_ms else None,
+            "top_kernels": [[e.key[:60], e.self_device_time_total / 1e3,
+                             e.count] for e in top]}))
+
+
+def krum_two_ways(stack, trainer, label: str) -> dict:
+    """Krum on ``stack`` [K, N] over the trainer's client mesh, with the
+    shard Grams from the kernel and from ``gram_plain``.  Fails if a shard
+    Gram is out of the tolerance of phase 4.  Returns the summed Grams,
+    selections and scores both ways, the active mask, f, and the float32
+    tie band of a score: a squared distance is ``G_ii + G_jj - 2 G_ij``,
+    so it carries the two Grams' difference (x4) plus the rounding of its
+    own three operations on values up to ``2 max G_ii``, and a score sums
+    ``n_nb`` of them."""
+    import torch
+
+    from federated_pytorch_test_tpu_torch.ops import gram
+    from federated_pytorch_test_tpu_torch.parallel import comm
+
+    K, mesh, trim = stack.shape[0], trainer.mesh, trainer.cfg.trim_frac
+    slabs = mesh.all_to_all(stack)
+    finite = mesh.psum([(~torch.isfinite(s)).float().sum(dim=1)
+                        for s in slabs]) == 0
+    _, act, m, _ = comm._screen(None, K, finite, stack)
+    safe = [comm._where0(act[:, None], s) for s in slabs]
+    kern = [gram.gram(s) for s in safe]
+    plain = [gram.gram_plain(s) for s in safe]
+    torch.cuda.synchronize()
+    for d, (gk, gp) in enumerate(zip(kern, plain)):
+        err, tol, ok = gram_within(gk, gp)
+        log(f"path data ({label}): shard {d} gram [{K}, {safe[d].shape[1]}] "
+            f"max_abs_err={err:.3e} tol={tol:.3e} "
+            f"(max G_ii {float(gp.diagonal().max()):.6e})")
+        if not ok:
+            fail(f"gram kernel disagrees with gram_plain on shard {d} of the "
+                 f"path's {label} stack")
+    out = {"act": act, "m": m}
+    for way, parts in (("kernel", kern), ("plain", plain)):
+        g = mesh.psum(parts)
+        score, f = comm.krum_scores(g, act, m, trim)
+        out[way] = (comm.krum_select(g, act, m, trim), score, g)
+    out["f"] = int(f)
+    g_k, g_p = out["kernel"][2], out["plain"][2]
+    n_nb = max(float(m) - out["f"] - 2.0, 1.0)
+    ulp = torch.finfo(torch.float32).eps * 2.0 * float(g_p.diagonal().max())
+    out["band"] = n_nb * (4.0 * float((g_k - g_p).abs().max()) + 3.0 * ulp)
+    for way in ("kernel", "plain"):
+        sel, score, _ = out[way]
+        log(f"path data ({label}): krum keeps clients "
+            f"{torch.nonzero(sel).flatten().tolist()} ({way}); scores "
+            f"{score.tolist()}")
+    log(f"path data ({label}): float32 tie band of a score {out['band']:.3e}")
+    return out
+
+
+def check_gram_path_data(stack, trainer) -> str:
+    """Phase 9: krum on the real ``y + rho*x`` stack, and on the same stack
+    with f clients moved away, through the kernel and ``gram_plain``.
+    Returns what the raw stack showed: "same" or "undecided"."""
+    import torch
+
+    raw = krum_two_ways(stack, trainer, "y + rho*x")
+    act = raw["act"]
+    if torch.equal(raw["kernel"][0], raw["plain"][0]):
+        verdict = "same"
+    else:
+        scores = torch.cat([raw[w][1][act] for w in ("kernel", "plain")])
+        spread = float(scores.max() - scores.min())
+        if raw["band"] < spread:
+            fail("krum selects other clients through the kernel than "
+                 "through gram_plain on the path's own data, while the "
+                 f"scores spread {spread:.3e}, beyond the float32 tie band "
+                 f"{raw['band']:.3e}")
+        verdict = "undecided"
+        log(f"path data (y + rho*x): UNDECIDED, not counted as a pass: the "
+            f"selections differ, and the float32 tie band of a score "
+            f"{raw['band']:.3e} reaches the spread of all scores "
+            f"{spread:.3e}, so no float32 summation order decides krum here")
+
+    # The separated case: move f clients (krum's attacker count) away from
+    # the rest by an offset of norm^2 OUTLIER_SCALE2 * max G_ii in a random
+    # direction each.  Krum must then drop exactly those, both ways alike.
+    f = raw["f"]
+    if f < 1:
+        fail("the configuration gives krum no client to drop (f = 0)")
+    outl = sorted(np.random.default_rng(1).choice(
+        torch.nonzero(act).flatten().tolist(), f, replace=False).tolist())
+    r = (OUTLIER_SCALE2 * float(raw["plain"][2].diagonal().max())) ** 0.5
+    gen = torch.Generator(device=stack.device).manual_seed(1)
+    sep = stack.clone()
+    for i in outl:
+        u = torch.randn(stack.shape[1], generator=gen, device=stack.device)
+        sep[i] += r * u / u.norm()
+    moved = torch.zeros_like(act)
+    moved[outl] = True
+    keep = act & ~moved
+    res = krum_two_ways(sep, trainer, "separated")
+    for way in ("kernel", "plain"):
+        score = res[way][1]
+        gap = float(score[moved].min() - score[keep].max())
+        log(f"path data (separated): clients {outl} moved by "
+            f"{r:.4e}; score gap ({way}) {gap:.4e} = "
+            f"{gap / res['band']:.1f} tie bands")
+        if gap < SEPARATION * res["band"]:
+            fail(f"the offset separates the moved clients by {gap:.3e}, "
+                 f"less than {SEPARATION} tie bands ({res['band']:.3e})")
+    sk, sp = res["kernel"][0], res["plain"][0]
+    if not torch.equal(sk, sp) or not torch.equal(sk, keep):
+        fail(f"krum keeps {torch.nonzero(sk).flatten().tolist()} through the "
+             f"kernel and {torch.nonzero(sp).flatten().tolist()} through "
+             f"gram_plain; expected every active client but {outl}")
+    # the engine's own estimator on the separated stack: the mean of the
+    # kept clients
+    est = trainer.mean_fn(sep)
+    want = sep[keep].mean(dim=0)
+    torch.cuda.synchronize()
+    err = float((est - want).abs().max())
+    tol = KRUM_MEAN_REL * float(sep[keep].abs().max())
+    log(f"path data (separated): krum estimate vs the kept clients' mean "
+        f"max_abs_err={err:.3e} tol={tol:.3e}")
+    if not err <= tol:
+        fail("the engine's krum estimate is not the mean of the clients "
+             "krum keeps")
+    return verdict
+
+
 def main() -> None:
     import torch
 
@@ -346,9 +691,16 @@ def main() -> None:
     sys.path.insert(0, ROOT)
     build()
     path_err, timing, device = check_kernels(dev, card)
+    gram_err, gram_timing, gram_device = check_gram(dev, card)
     trainer, launches = run_slice(dev)
     check_path_data(trainer)
     profile_steps(trainer)
+    del trainer
+    gram_launches, stack, trainer2, state2 = run_slice2(dev)
+    raw_krum = check_gram_path_data(stack, trainer2)
+    profile_slice2(trainer2, state2)
+    log(f"summary: krum's selection on the raw y + rho*x stack, kernel vs "
+        f"gram_plain: {raw_krum}")
 
     replaces = {"infonce_fwd": "federated_pytorch_test_tpu/ops/infonce.py:135",
                 "infonce_bwd": "federated_pytorch_test_tpu/ops/infonce.py:262"}
@@ -361,6 +713,15 @@ def main() -> None:
             "max_abs_err": path_err[name], "ms": k_ms,
             "device_ms": device[name], "plain_ms": p_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+    k_ms, p_ms, l_ms, (b_ms, b_by) = gram_timing
+    kernels.append({
+        "name": "gram", "route": "cuda",
+        "source": "federated_pytorch_test_tpu_torch/csrc/gram.cu",
+        "replaces": "federated_pytorch_test_tpu/ops/comm_kernels.py:250",
+        "launches": gram_launches, "max_abs_err": gram_err, "ms": k_ms,
+        "device_ms": gram_device, "plain_ms": p_ms, "bound_ms": b_ms,
+        "bound_by": b_by, "library_ms": l_ms})
+    log(card)                        # again here, where an output tail keeps it
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,5 +7,9 @@ nothing of the JAX package — so it runs on a machine that has no JAX.
 
 Ported so far: the federated CPC trainer (``train/cpc_engine.py``) with
 its L-BFGS, models, data pipeline and the two InfoNCE kernels
-(``csrc/infonce.cu``), driven by ``drivers/federated_cpc.py``.
+(``csrc/infonce.cu``), driven by ``drivers/federated_cpc.py``; and the
+classifier consensus round (``train/engine.py``) with the CIFAR-10
+pipeline, the classifier models, the algorithms, the robust estimators
+over a logical client mesh and krum's Gram kernel (``csrc/gram.cu``),
+driven by ``drivers/consensus_multi.py``.
 """

@@ -1,7 +1,9 @@
 """Carry parameters between the JAX package and the port.
 
-The JAX package keeps flax trees (conv kernels HWIO); the port keeps the
-same nested dicts with PyTorch-layout tensors (OIHW).  These helpers take
+The JAX package keeps flax trees (conv kernels HWIO, dense kernels
+[in, out]); the port keeps the same nested dicts with PyTorch-layout tensors
+(OIHW, [out, in]).  BatchNorm scales, biases and running statistics are
+vectors and cross unchanged.  These helpers take
 the JAX side as numpy arrays (``np.asarray`` of ``CPCTrainer.state0``
 leaves, or one client's flax dict) and return the port's stacked client
 state or loaded modules, and back — so that a test can start both sides
@@ -68,3 +70,19 @@ def load_module(module: BlockModule, flax_params: Mapping[str, Any]) -> BlockMod
                                                       device=device)))
     return module
 
+
+
+def classifier_state_from_jax(params: Mapping[str, Any],
+                              batch_stats: Mapping[str, Any],
+                              device="cpu") -> tuple:
+    """The JAX classifier's stacked ([K, ...]) ``params`` and
+    ``batch_stats`` (numpy leaves) -> the port's stacked trees."""
+    return (tree_from_jax(params, stacked=True, device=device),
+            tree_from_jax(batch_stats, stacked=True, device=device))
+
+
+def classifier_state_to_jax(params: Mapping[str, Any],
+                            batch_stats: Mapping[str, Any]) -> tuple:
+    """The port's stacked classifier trees -> flax-layout numpy trees."""
+    return (tree_to_jax(params, stacked=True),
+            tree_to_jax(batch_stats, stacked=True))

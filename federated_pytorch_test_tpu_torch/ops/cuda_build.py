@@ -26,7 +26,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_lock = threading.Lock()
+_lock = threading.Lock()                    # guards the two dicts below
 _libs: Dict[str, ctypes.CDLL] = {}
 #: per source name: {"seconds": build wall time (0.0 if the library was
 #: already built), "ptxas": the compiler's -Xptxas -v report, "path": .so}
@@ -46,30 +46,35 @@ def nvcc_path() -> str:
 
 
 def load_library(name: str) -> ctypes.CDLL:
-    """Build (once per source version) and load ``csrc/<name>.cu``."""
+    """Build (once per source version) and load ``csrc/<name>.cu``.  The
+    compiler runs outside the lock, so sources asked for from several
+    threads build concurrently; each writes its library under a temporary
+    name and renames it into place."""
     with _lock:
         if name in _libs:
             return _libs[name]
-        src = CSRC / f"{name}.cu"
-        digest = hashlib.sha256(src.read_bytes()
-                                + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        lib_path = BUILD_DIR / f"lib{name}-{digest}.so"
-        info = {"seconds": 0.0, "ptxas": "", "path": str(lib_path)}
-        if not lib_path.exists():
-            tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
-            t0 = time.perf_counter()
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            info["seconds"] = time.perf_counter() - t0
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed for {src} (rc={proc.returncode}):\n"
-                                   f"{proc.stdout}\n{proc.stderr}")
-            info["ptxas"] = " | ".join(
-                line.strip() for line in (proc.stdout + proc.stderr).splitlines()
-                if line.strip())
-            os.replace(tmp, lib_path)
-        lib = ctypes.CDLL(str(lib_path))
-        BUILD_INFO[name] = info
-        _libs[name] = lib
-        return lib
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    lib_path = BUILD_DIR / f"lib{name}-{digest}.so"
+    info = {"seconds": 0.0, "ptxas": "", "path": str(lib_path)}
+    if not lib_path.exists():
+        tmp = lib_path.with_suffix(
+            f".{os.getpid()}.{threading.get_ident()}.tmp")
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        info["seconds"] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {src} (rc={proc.returncode}):\n"
+                               f"{proc.stdout}\n{proc.stderr}")
+        info["ptxas"] = " | ".join(
+            line.strip() for line in (proc.stdout + proc.stderr).splitlines()
+            if line.strip())
+        os.replace(tmp, lib_path)
+    with _lock:
+        if name not in _libs:
+            _libs[name] = ctypes.CDLL(str(lib_path))
+            BUILD_INFO[name] = info
+        return _libs[name]

@@ -47,3 +47,41 @@ def init_weights(params: dict, gen: torch.Generator) -> dict:
         else:
             out[name] = leaf
     return out
+
+
+def lecun_normal_(t: torch.Tensor, gen: torch.Generator) -> torch.Tensor:
+    """In-place flax default kernel init (``lecun_normal``): a normal
+    truncated to [-2, 2] standard deviations, scaled to variance 1/fan_in
+    (fan_in over the receptive field: I*kh*kw of an OIHW kernel, I of an
+    [O, I] dense kernel)."""
+    fan_in = t.shape[1] * math.prod(t.shape[2:])
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    draw = torch.empty(t.shape, dtype=torch.float32, device=gen.device)
+    torch.nn.init.trunc_normal_(draw, 0.0, 1.0, -2.0, 2.0, generator=gen)
+    with torch.no_grad():
+        t.copy_(draw * std)
+    return t
+
+
+def init_tree(shapes: dict, gen: torch.Generator, init_model: bool = True) -> dict:
+    """Parameters from a nested dict of leaf shapes: the flax defaults
+    (kernels ``lecun_normal``, biases 0, norm scales 1), then, with
+    ``init_model`` (the reference's ``init_weights``), Xavier-uniform
+    kernels and 0.01 biases beside every kernel."""
+    def build(node):
+        out = {}
+        for name in sorted(node):
+            v = node[name]
+            if isinstance(v, dict):
+                out[name] = build(v)
+            elif name == "kernel":
+                t = torch.empty(v, dtype=torch.float32)
+                out[name] = t if init_model else lecun_normal_(t, gen)
+            elif name == "scale":
+                out[name] = torch.ones(v, dtype=torch.float32)
+            else:
+                out[name] = torch.zeros(v, dtype=torch.float32)
+        return out
+
+    params = build(shapes)
+    return init_weights(params, gen) if init_model else params

@@ -9,6 +9,8 @@ from __future__ import annotations
 
 from typing import Any, Callable, Mapping
 
+import torch
+
 
 def get_by_path(tree: Mapping[str, Any], path: str) -> Any:
     node: Any = tree
@@ -36,3 +38,12 @@ def tree_map(fn: Callable[[Any], Any], tree: Mapping[str, Any]) -> dict:
     """Apply ``fn`` to every leaf of a nested dict."""
     return {k: tree_map(fn, v) if isinstance(v, Mapping) else fn(v)
             for k, v in tree.items()}
+
+
+def tree_stack(trees) -> dict:
+    """Stack the leaves of equally shaped nested dicts on a new leading
+    dimension (one tree per client -> a [K, ...] tree)."""
+    first = trees[0]
+    return {k: tree_stack([t[k] for t in trees]) if isinstance(v, Mapping)
+            else torch.stack([t[k] for t in trees])
+            for k, v in first.items()}
