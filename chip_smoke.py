@@ -7,9 +7,9 @@ Needs one CUDA card and ``nvcc``; imports nothing of JAX.  Phases, each of
 which stops the script with a non-zero exit if it fails:
 
 1. device: the card's name and power limit (``nvidia-smi``);
-2. build: ``csrc/infonce.cu`` and ``csrc/gram.cu`` with ``nvcc`` for
-   ``sm_90a``, both compilers started together (the ptxas reports on one
-   line each, the build seconds);
+2. build: ``csrc/infonce.cu``, ``csrc/gram.cu`` and ``csrc/quant.cu`` with
+   ``nvcc`` for ``sm_90a``, the three compilers started together (the
+   ptxas reports on one line each, the build seconds);
 3. InfoNCE kernels vs plain: the forward and backward kernels against
    their plain PyTorch versions at the CPC path's shape (D=4096, P=9), at
    D=8/P=1, D=4099/P=130, D=256/P=1000 and with an all-zero column in Z
@@ -58,7 +58,29 @@ which stops the script with a non-zero exit if it fails:
    ``gram_plain`` alike, and the engine's krum estimate equal to the kept
    clients' mean;
 10. a profile of one Adam step of all K clients on the stem block and on
-    the largest block (printed only).
+    the largest block (printed only);
+11. quantize (B1) and dequantize-accumulate (B2) kernels vs plain: at
+    [9,220, 256] (the largest block's shard at D=2) with qmax 127 and 7,
+    [4, 256] (the stem block's shard), [1, 2], [3, 130], [33, 64],
+    [7, 512], [37, 1,000] and [5, 2,048],
+    each with a zero row and a saturating row, and a row holding inf and
+    NaN (its scale only: the cast of NaN to int8 has no defined value).
+    Scale and q exactly equal, B2 bit for bit.  Then at [9,220, 256] the
+    time per call (CUDA events over a ring of inputs larger than the L2
+    cache), the device time, the plain versions' time, the bound, and
+    ``torch.addcmul`` as B2's library yardstick;
+12. slice 3 at full width: ``drivers.consensus_multi`` with ResNet18,
+    ``--compress q8 --fused-collective --num-devices 2`` and slice 2's cuts
+    (20 rounds), the B1/B2 launch counts set to 0 just before and read just
+    after.  Every round's loss and residuals finite, every block changed,
+    both kernels launched in every round, ``bytes_fused`` equal to the byte
+    model and ``bytes_on_wire`` to K times the codec's payload;
+13. slice 3's own data: at the largest block's first comm round, the real
+    ``y + rho*x`` stack's fused mean through the kernels and through the
+    plain versions bit for bit equal, at D=2 (butterfly) and D=5 (ring),
+    both within ``(log2 D + 1)`` grid steps of the dense mean;
+14. a profile of one comm step (encode, fused mean, ADMM update) at the
+    largest block (printed only).
 
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -106,6 +128,27 @@ SLICE2_ARGV = ["--device", "cuda", "--model", "resnet18", "--robust-agg",
                "1", "--Nadmm", "2", "--n-train", "1280", "--n-test", "1000"]
 SLICE2_ROUNDS = 20
 LARGEST_BLOCK_N = 4_720_640
+#: B1/B2 shapes: the largest and the stem shard of ResNet18 at D=2, then
+#: edge cases (a 2-wide row, a width that is not a multiple of 4, rows that
+#: take B1's vector path with 1, 4 and 8 float4 a lane, a row wider than
+#: the vector path's 1,024)
+QUANT_SHAPES = ((9220, 256), (4, 256), (1, 2), (3, 130), (33, 64), (7, 512),
+                (37, 1000), (5, 2048))
+QUANT_PATH_SHAPE = (9220, 256)
+#: timing ring: inputs enough to exceed the H100's 50 MB L2 cache in total
+QUANT_RING = 8
+#: slice 3 as chip_smoke drives it: slice 2's configuration and cuts with
+#: the q8 fused collective in place of krum
+SLICE3_ARGV = ["--device", "cuda", "--model", "resnet18", "--compress", "q8",
+               "--fused-collective", "--num-devices", "2", "--Nloop", "1",
+               "--Nadmm", "2", "--n-train", "1280", "--n-test", "1000"]
+#: the byte models at the largest block (ops/packed_reduce.py,
+#: compress/quantize.py): what the records must carry
+LARGEST_BYTES_FUSED = 9_588_800
+LARGEST_BYTES_ON_WIRE = 47_944_000
+#: the Pallas sites B1 and B2 replace
+QUANTIZE_SITE = "federated_pytorch_test_tpu/ops/comm_kernels.py:124"
+DEQUANT_SITE = "federated_pytorch_test_tpu/ops/comm_kernels.py:182"
 #: phase 9's separated case: each moved client's offset has squared norm
 #: OUTLIER_SCALE2 * max G_ii, and the moved clients' krum scores must clear
 #: the others' by SEPARATION float32 tie bands
@@ -209,7 +252,7 @@ def build() -> None:
 
     from federated_pytorch_test_tpu_torch.ops import cuda_build
 
-    names = ("infonce", "gram")
+    names = ("infonce", "gram", "quant")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:
         for f in [pool.submit(cuda_build.load_library, n) for n in names]:
@@ -683,6 +726,307 @@ def check_gram_path_data(stack, trainer) -> str:
              "krum keeps")
     return verdict
 
+def same_scale(a, b) -> bool:
+    """Scales equal element for element, a NaN matching a NaN."""
+    return bool(((a == b) | (a.isnan() & b.isnan())).all())
+
+
+def quant_bound(c: int, w: int, name: str) -> tuple:
+    """(bytes, operations) of B1 or B2 on [c, w] rows, each input read once
+    and each output written once.  B1 reads v (f32) and writes q (int8) and
+    the scales; per element abs, max, divide, round and two clamps.  B2
+    reads acc (f32), q (int8) and the scales and writes out (f32); per
+    element a multiply and an add."""
+    if name == "quantize_chunks":
+        return c * w * 4 + c * w + c * 4, 6 * c * w
+    return c * w * 4 + c * w + c * 4 + c * w * 4, 2 * c * w
+
+
+def check_quant(dev, card: str):
+    """Phase 11; returns ({kernel: max_abs_err at the path's shape},
+    {kernel: (kernel_ms, plain_ms, library_ms, (bound_ms, bound_by))},
+    {kernel: device_ms})."""
+    import torch
+
+    from federated_pytorch_test_tpu_torch.ops import quant
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    path_err = {}
+    for c, w in QUANT_SHAPES:
+        for qmax in (127, 7):
+            v = torch.randn(c, w, generator=gen, device=dev)
+            if c >= 3:
+                v[1] = 0.0                              # a zero row
+                v[2] *= 1e-6                            # a saturating row
+                v[2, w // 2] = -50.0
+            q_k, s_k = quant.quantize_chunks(v, qmax)
+            q_p, s_p = quant.quantize_plain(v, qmax)
+            acc = torch.randn(c, w, generator=gen, device=dev)
+            o_k = quant.dequant_add(acc, q_p, s_p)
+            o_p = quant.dequant_add_plain(acc, q_p, s_p)
+            torch.cuda.synchronize()
+            s_err = float((s_k - s_p).abs().max())
+            q_err = int((q_k.int() - q_p.int()).abs().max())
+            o_err = float((o_k - o_p).abs().max())
+            sat = c < 3 or int(q_k[2, w // 2]) == -qmax
+            log(f"quant check [{c}, {w}] qmax={qmax}: scale max_abs_err="
+                f"{s_err:.3e} q max_abs_err={q_err} dequant_add max_abs_err="
+                f"{o_err:.3e} saturating row -> -qmax: {sat}")
+            if not (same_scale(s_k, s_p) and torch.equal(q_k, q_p)
+                    and torch.equal(o_k, o_p) and sat):
+                fail(f"quantize/dequant_add kernels disagree with their plain "
+                     f"versions at [{c}, {w}] qmax={qmax}")
+            if (c, w) == QUANT_PATH_SHAPE and qmax == 127:
+                path_err = {"quantize_chunks": max(s_err, float(q_err)),
+                            "dequant_add": o_err}
+    # a row with inf, a row with NaN, a row with both: the scale only (the
+    # cast of NaN to int8 has no defined value on either side)
+    v = torch.randn(4, 256, generator=gen, device=dev)
+    v[1, 3] = float("inf")
+    v[2, 5] = float("nan")
+    v[3, 0], v[3, 7] = float("-inf"), float("nan")
+    _, s_k = quant.quantize_chunks(v, 127)
+    _, s_p = quant.quantize_plain(v, 127)
+    torch.cuda.synchronize()
+    log(f"quant check non-finite rows: scales kernel {s_k.tolist()} plain "
+        f"{s_p.tolist()}")
+    if not (same_scale(s_k, s_p) and s_k[1].isinf() and s_k[2].isnan()
+            and s_k[3].isnan()):
+        fail("the quantize kernel's scale of a non-finite row disagrees with "
+             "the plain version's")
+
+    # time at the path's shape over a ring of inputs (75 MB of v, 94 MB of
+    # acc: more than the 50 MB L2), so that each call reads device memory
+    c, w = QUANT_PATH_SHAPE
+    vs = [torch.randn(c, w, generator=gen, device=dev)
+          for _ in range(QUANT_RING)]
+    accs = [torch.randn(c, w, generator=gen, device=dev)
+            for _ in range(QUANT_RING)]
+    packs = [quant.quantize_plain(x, 127) for x in vs]
+    safes = [torch.where(s > 0, s, torch.ones_like(s))[:, None]
+             for _, s in packs]
+    turn = [0]
+
+    def ring(fn):
+        def call():
+            i = turn[0] = (turn[0] + 1) % QUANT_RING
+            return fn(i)
+        return call
+
+    b1 = ring(lambda i: quant.quantize_chunks(vs[i], 127))
+    b1_plain = ring(lambda i: quant.quantize_plain(vs[i], 127))
+    b2 = ring(lambda i: quant.dequant_add(accs[i], *packs[i]))
+    b2_plain = ring(lambda i: quant.dequant_add_plain(accs[i], *packs[i]))
+    b2_lib = ring(lambda i: torch.addcmul(accs[i], packs[i][0], safes[i]))
+    timing = {
+        "quantize_chunks": (cuda_time_ms(b1), cuda_time_ms(b1_plain, iters=50),
+                            None, bound_ms(*quant_bound(c, w, "quantize_chunks"))),
+        "dequant_add": (cuda_time_ms(b2), cuda_time_ms(b2_plain, iters=50),
+                        cuda_time_ms(b2_lib),
+                        bound_ms(*quant_bound(c, w, "dequant_add"))),
+    }
+    device = {"quantize_chunks": profiled_device_ms(b1, "quantize_"),
+              "dequant_add": profiled_device_ms(b2, "dequant_add_kernel")}
+    for name, (k_ms, p_ms, l_ms, (b_ms, b_by)) in timing.items():
+        log(json.dumps({"kernel": name, "c": c, "chunk": w, "qmax": 127,
+                        "kernel_ms": k_ms, "device_ms": device[name],
+                        "plain_ms": p_ms, "library_ms": l_ms,
+                        "bound_ms": b_ms, "bound_by": b_by,
+                        "timed_over": f"a ring of {QUANT_RING} inputs",
+                        "card": card}))
+    return path_err, timing, device
+
+
+def run_slice3(dev):
+    """Phase 12; returns (the B1/B2 launches of the run, the captured
+    ``y + rho*x`` stack of the largest block's first comm round, the
+    trainer, the final state)."""
+    import torch
+
+    from federated_pytorch_test_tpu_torch.drivers import consensus_multi
+    from federated_pytorch_test_tpu_torch.ops import quant
+    from federated_pytorch_test_tpu_torch.ops.packed_reduce import (
+        fused_bytes_on_wire,
+    )
+    from federated_pytorch_test_tpu_torch.train import engine
+    from federated_pytorch_test_tpu_torch.utils import codec
+
+    captured = {}
+    make = engine.make_fused_mean
+
+    def capturing(compressor, mesh, K):
+        mean_fn = make(compressor, mesh, K)
+
+        def fn(stack, w=None):
+            # the engine's fused mean sees the ADMM stack y + rho*x itself
+            if stack.shape[1] == LARGEST_BLOCK_N and "stack" not in captured:
+                captured["stack"] = stack.detach().clone()
+            return mean_fn(stack, w)
+
+        return fn
+
+    engine.make_fused_mean = capturing
+    try:
+        for k in quant.LAUNCHES:
+            quant.LAUNCHES[k] = 0
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        trainer, state, history = consensus_multi.main(SLICE3_ARGV, log=log)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(quant.LAUNCHES)
+    finally:
+        engine.make_fused_mean = make
+    log(f"slice 3: {len(history)} rounds in {wall:.2f} s, launches "
+        f"{launches}, max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated(dev)} B")
+    K, comp = trainer.cfg.K, trainer.compressor
+    for rec in history:
+        log(json.dumps({k: rec[k] for k in (
+            "block", "nadmm", "N", "loss", "dual_residual", "primal_residual",
+            "round_seconds", "stage_seconds", "train_seconds", "comm_seconds",
+            "bytes_on_wire", "bytes_fused", "kernel_launches")}))
+    if len(history) != SLICE2_ROUNDS:
+        fail(f"expected {SLICE2_ROUNDS} rounds, got {len(history)}")
+    for rec in history:
+        if not all(np.isfinite(rec[k]) for k in
+                   ("loss", "dual_residual", "primal_residual")):
+            fail(f"non-finite loss or residual: {rec}")
+        if min(rec["kernel_launches"][k] for k in launches) < 1:
+            fail(f"a quantize kernel was not launched in round {rec}")
+        N = rec["N"]
+        if rec["bytes_fused"] != fused_bytes_on_wire(comp, N, trainer.D, K):
+            fail(f"bytes_fused {rec['bytes_fused']} is not the byte model's "
+                 f"{fused_bytes_on_wire(comp, N, trainer.D, K)} at N={N}")
+        if rec["bytes_on_wire"] != K * comp.bytes_on_wire(N):
+            fail(f"bytes_on_wire {rec['bytes_on_wire']} is not "
+                 f"{K} x {comp.bytes_on_wire(N)} at N={N}")
+        if N == LARGEST_BLOCK_N and (
+                rec["bytes_fused"], rec["bytes_on_wire"]) != (
+                LARGEST_BYTES_FUSED, LARGEST_BYTES_ON_WIRE):
+            fail(f"the largest block's bytes {rec['bytes_fused']}, "
+                 f"{rec['bytes_on_wire']} are not {LARGEST_BYTES_FUSED}, "
+                 f"{LARGEST_BYTES_ON_WIRE}")
+    for ci in range(trainer.L):
+        mask = trainer.mask_for_block(ci)
+        before = codec.get_trainable_stack(trainer.params0, trainer.order, mask)
+        after = codec.get_trainable_stack(state.params, trainer.order, mask)
+        if torch.equal(before, after):
+            fail(f"block {ci} did not change")
+    if "stack" not in captured:
+        fail("the largest block's comm round was not reached")
+    return launches, captured["stack"], trainer, state
+
+
+def check_fused_path_data(stack, trainer) -> None:
+    """Phase 13: the fused mean of the real ``y + rho*x`` stack through the
+    kernels and through the plain versions, at D=2 and D=5."""
+    import math
+
+    import torch
+
+    from federated_pytorch_test_tpu_torch.ops import packed_reduce as pr
+    from federated_pytorch_test_tpu_torch.ops import quant
+    from federated_pytorch_test_tpu_torch.parallel.mesh import ClientMesh
+
+    K, n = stack.shape
+    bits, chunk = pr.transport_params(trainer.compressor)
+    dense = stack.double().mean(dim=0)
+    pad = -n % chunk
+    top = torch.nn.functional.pad(dense.abs(), (0, pad)).reshape(-1, chunk)
+    step = (2.0 * top.amax(dim=1) / (2 ** bits - 2)).repeat_interleave(chunk)[:n]
+    for D in (2, 5):
+        mesh = ClientMesh(D)
+        local, div = pr._weighted_local_sum(stack, None, K, mesh)
+        before = dict(quant.LAUNCHES)
+        got = pr.packed_fused_mean(local, div, mesh, bits, chunk, quant.KERNELS)
+        launched = {k: quant.LAUNCHES[k] - before[k] for k in before}
+        plain = pr.packed_fused_mean(local, div, mesh, bits, chunk, quant.PLAIN)
+        torch.cuda.synchronize()
+        steps = float(((got.double() - dense).abs() / step.clamp(min=1e-30))
+                      .max())
+        log(f"path data (fused mean, D={D}): kernels vs plain bitwise "
+            f"{torch.equal(got, plain)} (max_abs_err "
+            f"{float((got - plain).abs().max()):.3e}); launches {launched}; "
+            f"vs the dense mean {steps:.4f} grid steps (limit "
+            f"{math.log2(D) + 1:.4f}); max |mean| {float(dense.abs().max()):.4e}")
+        if not torch.equal(got, plain):
+            fail(f"the fused mean through the kernels differs from the plain "
+                 f"versions on the path's stack at D={D}")
+        if min(launched.values()) < 1:
+            fail(f"the fused mean at D={D} launched no kernel: {launched}")
+        if not steps <= math.log2(D) + 1:
+            fail(f"the fused mean at D={D} lies {steps:.3f} grid steps from "
+                 f"the dense mean, beyond log2(D) + 1")
+
+
+def profile_comm_step(trainer, state) -> None:
+    """Phase 14 (printed only): one comm step at the largest block: the
+    encode (with the decode), the fused mean and the whole ADMM update,
+    each timed on the host clock around a device sync; the whole step's
+    wall time; then the step under ``torch.profiler``: device busy time,
+    idle share, the B1/B2 share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from federated_pytorch_test_tpu_torch.parallel.comm import decode_stack
+    from federated_pytorch_test_tpu_torch.train.engine import ClientState
+    from federated_pytorch_test_tpu_torch.utils import codec
+
+    ci = next(c for c in range(trainer.L)
+              if trainer.block_size(c) == LARGEST_BLOCK_N)
+    K, dev, N = trainer.cfg.K, trainer.device, LARGEST_BLOCK_N
+    z = torch.zeros(N, device=dev)
+    y = torch.zeros(K, N, device=dev)
+    rho = torch.tensor(trainer.cfg.admm_rho0, device=dev)
+    x0 = yhat0 = torch.zeros(K, 1, device=dev)
+    st = ClientState(state.params, state.batch_stats, None,
+                     trainer._init_comp_state(ci))
+    comp = trainer.compressor
+    x = codec.get_trainable_stack(st.params, trainer.order,
+                                  trainer.mask_for_block(ci))
+    trainer.comm_round(st, ci, z, y, rho, x0, yhat0)            # warm-up
+    parts = {}
+    for _ in range(2):                    # the second pass is the one kept
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        payload, _ = comp.encode(x - z[None, :], st.comp)
+        xh = z[None, :] + decode_stack(payload, comp, N)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        trainer.mean_fn(y + rho * xh, None)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        trainer.algo.global_update(xh, z, y, rho, K, trainer.mesh,
+                                   mean_fn=trainer.mean_fn)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        parts = {"encode_decode_ms": (t1 - t0) * 1e3,
+                 "fused_mean_ms": (t2 - t1) * 1e3,
+                 "admm_update_ms": (t3 - t2) * 1e3}
+    # the step's wall time without the profiler (whose start and stop
+    # would fall inside the window), then its device time under it
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.comm_round(st, ci, z, y, rho, x0, yhat0)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        trainer.comm_round(st, ci, z, y, rho, x0, yhat0)
+        torch.cuda.synchronize()
+    ev = prof.key_averages()
+    busy_ms = sum(e.self_device_time_total for e in ev) / 1e3
+    quant_ms = sum(e.self_device_time_total for e in ev
+                   if "quantize_" in e.key or "dequant_add" in e.key) / 1e3
+    top = sorted(ev, key=lambda e: -e.self_device_time_total)[:6]
+    log(json.dumps({
+        "profile_step": "comm step, largest block", "N": N, "clients": K,
+        **parts, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+        "device_idle_share": (1.0 - busy_ms / wall_ms) if wall_ms else None,
+        "quant_kernels_device_ms": quant_ms,
+        "top_kernels": [[e.key[:60], e.self_device_time_total / 1e3, e.count]
+                        for e in top]}))
+
 
 def main() -> None:
     import torch
@@ -699,6 +1043,11 @@ def main() -> None:
     gram_launches, stack, trainer2, state2 = run_slice2(dev)
     raw_krum = check_gram_path_data(stack, trainer2)
     profile_slice2(trainer2, state2)
+    del trainer2, state2, stack
+    quant_err, quant_timing, quant_device = check_quant(dev, card)
+    quant_launches, stack3, trainer3, state3 = run_slice3(dev)
+    check_fused_path_data(stack3, trainer3)
+    profile_comm_step(trainer3, state3)
     log(f"summary: krum's selection on the raw y + rho*x stack, kernel vs "
         f"gram_plain: {raw_krum}")
 
@@ -721,6 +1070,15 @@ def main() -> None:
         "launches": gram_launches, "max_abs_err": gram_err, "ms": k_ms,
         "device_ms": gram_device, "plain_ms": p_ms, "bound_ms": b_ms,
         "bound_by": b_by, "library_ms": l_ms})
+    for name, (k_ms, p_ms, l_ms, (b_ms, b_by)) in quant_timing.items():
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "federated_pytorch_test_tpu_torch/csrc/quant.cu",
+            "replaces": {"quantize_chunks": QUANTIZE_SITE,
+                         "dequant_add": DEQUANT_SITE}[name],
+            "launches": quant_launches[name], "max_abs_err": quant_err[name],
+            "ms": k_ms, "device_ms": quant_device[name], "plain_ms": p_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": l_ms})
     log(card)                        # again here, where an output tail keeps it
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

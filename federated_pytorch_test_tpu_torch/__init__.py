@@ -11,5 +11,8 @@ its L-BFGS, models, data pipeline and the two InfoNCE kernels
 classifier consensus round (``train/engine.py``) with the CIFAR-10
 pipeline, the classifier models, the algorithms, the robust estimators
 over a logical client mesh and krum's Gram kernel (``csrc/gram.cu``),
-driven by ``drivers/consensus_multi.py``.
+driven by ``drivers/consensus_multi.py``; and the compressed exchange of
+that round (``compress/`` q8/q4 with error feedback) with the fused
+quantized collective (``ops/packed_reduce.py``) and its quantize and
+dequantize-accumulate kernels (``csrc/quant.cu``).
 """

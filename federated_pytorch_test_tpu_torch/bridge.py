@@ -8,7 +8,8 @@ the JAX side as numpy arrays (``np.asarray`` of ``CPCTrainer.state0``
 leaves, or one client's flax dict) and return the port's stacked client
 state or loaded modules, and back — so that a test can start both sides
 from the same weights.  Flat block vectors need no conversion: the port's
-codec keeps the JAX element order.
+codec keeps the JAX element order.  An error-feedback residual crosses with
+:func:`ef_state_from_jax`.
 """
 
 from __future__ import annotations
@@ -71,7 +72,6 @@ def load_module(module: BlockModule, flax_params: Mapping[str, Any]) -> BlockMod
     return module
 
 
-
 def classifier_state_from_jax(params: Mapping[str, Any],
                               batch_stats: Mapping[str, Any],
                               device="cpu") -> tuple:
@@ -86,3 +86,16 @@ def classifier_state_to_jax(params: Mapping[str, Any],
     """The port's stacked classifier trees -> flax-layout numpy trees."""
     return (tree_to_jax(params, stacked=True),
             tree_to_jax(batch_stats, stacked=True))
+
+
+def ef_state_from_jax(resid: Any, state: Mapping[str, Any]) -> dict:
+    """The port's error-feedback state ``state`` (``{"inner", "resid"}``)
+    with its residual replaced by the JAX package's stacked ``[K, n]``
+    residual (numpy, or ``comp["resid"]`` of a JAX compressor state): both
+    sides then start from the same residual.  The inner stream state is
+    the port's own."""
+    r = torch.from_numpy(np.array(resid, dtype=np.float32))
+    if tuple(r.shape) != tuple(state["resid"].shape):
+        raise ValueError(f"residual of shape {tuple(r.shape)} for a state of "
+                         f"shape {tuple(state['resid'].shape)}")
+    return {"inner": state["inner"], "resid": r.to(state["resid"].device)}

@@ -16,6 +16,10 @@ from typing import Optional
 
 import torch
 
+from federated_pytorch_test_tpu_torch.compress.base import (
+    COMPRESS_CHOICES,
+    NOT_PORTED,
+)
 from federated_pytorch_test_tpu_torch.data.cifar10 import FederatedCifar10
 from federated_pytorch_test_tpu_torch.models.resnet import ResNet9, ResNet18
 from federated_pytorch_test_tpu_torch.models.simple import Net, Net1, Net2
@@ -31,9 +35,9 @@ MODEL_CHOICES = ("auto",) + tuple(_MODELS)
 #: flags of the JAX classifier drivers whose features the port does not
 #: have yet (ROADMAP.md): given on the command line, they raise
 UNPORTED = (
-    "participation", "population", "compress", "fault-spec", "campaign-spec",
-    "update-guard", "async-rounds", "fused-rounds", "fused-collective",
-    "overlap-staging", "overlap-round", "sharded-update", "device-data",
+    "participation", "population", "fault-spec", "campaign-spec",
+    "update-guard", "async-rounds", "fused-rounds", "overlap-staging",
+    "overlap-round", "sharded-update", "device-data",
     "load-model", "midrun-checkpoint", "async-checkpoint", "max-restarts",
     "obs-dir", "obs-sinks", "control", "serve-spec", "profile-dir",
     "be-verbose")
@@ -58,6 +62,8 @@ def build_parser(defaults: FederatedConfig, prog: str) -> argparse.ArgumentParse
             p.add_argument(arg, choices=("batch", "group"), default=default)
         elif f.name == "robust_agg":
             p.add_argument(arg, choices=ROBUST_AGG_CHOICES, default=default)
+        elif f.name == "compress":
+            p.add_argument(arg, choices=COMPRESS_CHOICES, default=default)
         elif f.name == "model":
             p.add_argument(arg, choices=MODEL_CHOICES, default=default)
         elif default is None:
@@ -83,6 +89,8 @@ def parse_config(defaults: FederatedConfig, prog: str, argv=None):
     if given:
         p.error(f"--{given[0]} is not ported to the PyTorch package yet "
                 "(see ROADMAP.md)")
+    if args.compress == "topk":
+        p.error(NOT_PORTED)
     cfg = FederatedConfig(**{f.name: getattr(args, f.name)
                              for f in dataclasses.fields(FederatedConfig)})
     return cfg, args

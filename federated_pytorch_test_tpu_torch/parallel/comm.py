@@ -13,6 +13,10 @@ per shard: shard d owns the column slab d of the ``all_to_all``, its
 per-client partial sums are ``psum``\\ ed over the shards in order, and the
 per-shard results are concatenated.  Krum's chunked distance pass calls the
 Gram kernel (``ops/gram.py``, kernel B3) once per shard.
+
+The compressed exchange's dense payload path (:func:`decode_stack`,
+:func:`compressed_federated_mean`) decodes the clients' payloads before the
+sum; the sparse (top-k) payloads are not ported.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ from typing import Optional
 import torch
 
 from federated_pytorch_test_tpu_torch.ops.gram import gram
+from federated_pytorch_test_tpu_torch.ops.packed_reduce import SPARSE_NOT_PORTED
 from federated_pytorch_test_tpu_torch.parallel.mesh import ClientMesh
 
 #: CLI surface — ``drivers/common.py`` derives ``--robust-agg`` from this
@@ -43,6 +48,30 @@ def federated_mean(stack: torch.Tensor, K: int,
     """``z = sum_k x_k / K`` over the leading [K, ...] client dimension —
     the FedAvg global update (reference federated_multi.py:208-211)."""
     return federated_sum(stack, mesh) / K
+
+
+def decode_stack(payloads, compressor, n: int) -> torch.Tensor:
+    """Dense reconstructions [K, n] of a client-stacked payload (the
+    compressors decode the whole stack at once)."""
+    if compressor.sparse:
+        raise NotImplementedError(SPARSE_NOT_PORTED)
+    return compressor.decode(payloads, n)
+
+
+def compressed_federated_mean(payloads, compressor, n: int, K: int,
+                              mesh: Optional[ClientMesh] = None,
+                              w: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean over clients of the decoded payloads -> dense [n]: each shard's
+    decoded partial sum (``w`` [K] masks clients out of the sum and the
+    divisor), then the psum."""
+    mesh = mesh or ClientMesh(1)
+    d = decode_stack(payloads, compressor, n)
+    if w is not None:
+        d = d * w[:, None]
+    total = mesh.federated_sum(d)
+    if w is None:
+        return total / K
+    return total / mesh.psum([s.sum() for s in mesh.shards(w)])
 
 
 def _where0(cond: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

@@ -12,7 +12,12 @@ order:
   * ``psum``: a sum over d = 0..D-1, in that order;
   * the tiled ``all_to_all`` over the coordinate axis: a split of the padded
     ``[K, D*seg]`` stack into D column slabs ``[K, seg]``;
-  * the tiled ``all_gather``: a concatenation.
+  * the tiled ``all_gather``: a concatenation; the untiled one a stack;
+  * ``ppermute``: a permutation of the per-device list.
+
+A program that runs on every device (the packed reduce-scatter of
+``ops/packed_reduce.py``) runs here once per device index, in index order,
+each step's sends gathered before its receives are used.
 
 The numbers are those of the JAX program at that D; the mesh adds nothing
 the JAX package lacks.
@@ -20,7 +25,7 @@ the JAX package lacks.
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import Any, List, Sequence, Tuple
 
 import torch
 
@@ -63,9 +68,30 @@ class ClientMesh:
         return list(stack.split(seg, dim=1))
 
     @staticmethod
-    def all_gather(parts: Sequence[torch.Tensor]) -> torch.Tensor:
-        """The tiled ``all_gather``: the shards' pieces concatenated."""
-        return torch.cat(list(parts))
+    def all_gather(parts: Sequence[torch.Tensor],
+                   tiled: bool = True) -> torch.Tensor:
+        """``all_gather`` of the devices' pieces: concatenated (tiled) or
+        stacked on a new leading device dimension."""
+        return torch.cat(list(parts)) if tiled else torch.stack(list(parts))
+
+    def indices(self) -> range:
+        """Each logical device's own index (``lax.axis_index``), in the
+        order the per-device programs run."""
+        return range(self.size)
+
+    def ppermute(self, parts: Sequence[Any],
+                 perm: Sequence[Tuple[int, int]]) -> List[Any]:
+        """``lax.ppermute``: device ``dst`` receives ``parts[src]`` for every
+        ``(src, dst)`` of ``perm``, which must be a permutation of the D
+        devices (the only kind the packed collectives use)."""
+        out: List[Any] = [None] * self.size
+        for src, dst in perm:
+            out[dst] = parts[src]
+        if sorted(d for _, d in perm) != list(self.indices()) or \
+                sorted(s for s, _ in perm) != list(self.indices()):
+            raise ValueError(f"ppermute takes a permutation of the "
+                             f"{self.size} devices; got {list(perm)}")
+        return out
 
 
 def usable_device_count(K: int, n_devices: int = 1) -> int:

@@ -2,7 +2,8 @@
 
 The subset of ``federated_pytorch_test_tpu/train/config.py``'s
 ``FederatedConfig`` that the ported paths read (the CPC trainer and the
-classifier consensus round), with the JAX package's defaults, plus the
+classifier consensus round, with or without the compressed exchange),
+with the JAX package's defaults, plus the
 device the run uses.  A knob of the JAX package that is missing here is not
 ported yet (``ROADMAP.md``); the drivers refuse it by name.
 """
@@ -40,6 +41,12 @@ class FederatedConfig:
     clip_mult: float = 3.0         # clip at this x the median client norm
     robust_chunked: bool = False   # segment-owned robust aggregation
     num_devices: Optional[int] = None  # client-mesh shards (None: one)
+
+    compress: str = "none"         # none|q8|q4 (topk not ported yet)
+    topk_frac: float = 0.01
+    quant_chunk: int = 256         # values per quantization scale
+    error_feedback: bool = False   # carry the compression residual
+    fused_collective: bool = False  # keep q8/q4 payloads packed on the wire
 
     bb_update: bool = False        # Barzilai-Borwein adaptive rho
     bb_period_T: int = 2

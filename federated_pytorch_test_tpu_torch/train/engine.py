@@ -2,8 +2,9 @@
 
 Port of ``BlockwiseFederatedTrainer`` of
 ``federated_pytorch_test_tpu/train/engine.py`` with every knob off apart
-from the robust aggregation (``robust_agg``, ``robust_chunked``).  The loop
-nest of the reference is kept::
+from the robust aggregation (``robust_agg``, ``robust_chunked``) and the
+compressed exchange (``compress`` q8/q4, ``error_feedback``,
+``fused_collective``).  The loop nest of the reference is kept::
 
     Nloop (sweeps over the net) -> L blocks -> Nadmm (comm rounds)
       -> Nepoch (local epochs) -> K clients -> minibatches
@@ -14,7 +15,10 @@ flat vector in the JAX element order: Adam (optax's update, written out) on
 the gradient of the classifier loss plus the algorithm's penalty.  The
 comm step gathers the ``[K, N]`` stack, runs the algorithm's global update
 through the (robust) mean over the client mesh, and writes ``z`` back for
-FedAvg.  The K clients are a loop on one device (the JAX ``vmap``); each
+FedAvg.  Under ``compress`` the server sees only the reconstructions
+``z + decode(encode(x - z))``; with ``fused_collective`` their mean runs as
+the packed quantized collective of ``ops/packed_reduce.py`` (kernels B1
+and B2).  The K clients are a loop on one device (the JAX ``vmap``); each
 keeps its own parameters, BatchNorm statistics, data and normalisation.
 
 Epoch data is built on the host from the counter-keyed seed of the JAX
@@ -33,10 +37,21 @@ from typing import Any, Callable, Dict, List, NamedTuple, Optional
 import numpy as np
 import torch
 
+from federated_pytorch_test_tpu_torch.compress.base import (
+    make_compressor,
+    stacked_init,
+)
 from federated_pytorch_test_tpu_torch.data.cifar10 import FederatedCifar10
 from federated_pytorch_test_tpu_torch.models.base import BlockModule
-from federated_pytorch_test_tpu_torch.ops import gram
-from federated_pytorch_test_tpu_torch.parallel.comm import make_robust_mean
+from federated_pytorch_test_tpu_torch.ops import gram, quant
+from federated_pytorch_test_tpu_torch.ops.packed_reduce import (
+    fused_bytes_on_wire,
+    make_fused_mean,
+)
+from federated_pytorch_test_tpu_torch.parallel.comm import (
+    decode_stack,
+    make_robust_mean,
+)
 from federated_pytorch_test_tpu_torch.parallel.mesh import (
     ClientMesh,
     usable_device_count,
@@ -64,11 +79,12 @@ ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
 class ClientState(NamedTuple):
     """Per-client training state, stacked on the leading K dimension:
     parameters and BatchNorm statistics (nested dicts of [K, ...] tensors,
-    PyTorch layout) and the active block's Adam state."""
+    PyTorch layout), the active block's Adam state and compressor state."""
 
     params: Any
     batch_stats: Any
     opt_state: Any = None
+    comp: Any = None
 
 
 class AdamState(NamedTuple):
@@ -92,6 +108,11 @@ def adam_step(x, g, mu, nu, count: int, lr: float):
     return x + u * (-lr), mu, nu
 
 
+def _launch_counts() -> Dict[str, int]:
+    """The kernels' launch counters of this process, by kernel name."""
+    return {**gram.LAUNCHES, **quant.LAUNCHES}
+
+
 def _normalize_u8(x_u8: torch.Tensor, norm: torch.Tensor) -> torch.Tensor:
     """Device-side ToTensor + Normalize of NHWC uint8 images with the
     client's [2, 3] (mean, std), returned NCHW."""
@@ -101,7 +122,8 @@ def _normalize_u8(x_u8: torch.Tensor, norm: torch.Tensor) -> torch.Tensor:
 
 class BlockwiseFederatedTrainer:
     """The classifier engine of the consensus, FedAvg and FedProx drivers,
-    on its default path (knobs off) with optional robust aggregation."""
+    on its default path (knobs off) with optional robust aggregation or
+    compressed exchange."""
 
     def __init__(self, model: BlockModule, cfg: FederatedConfig,
                  data: FederatedCifar10, algorithm: Algorithm):
@@ -131,9 +153,30 @@ class BlockwiseFederatedTrainer:
         if K % self.D:
             raise ValueError(f"K={K} not divisible by device count {self.D}")
         self.K_local = K // self.D
-        self.mean_fn = make_robust_mean(
-            cfg.robust_agg, trim_frac=cfg.trim_frac, clip_mult=cfg.clip_mult,
-            chunked=cfg.robust_chunked, mesh=self.mesh)
+        # update compression: validated here, so a bad flag combination
+        # fails at construction
+        self.compressor = make_compressor(
+            cfg.compress, topk_frac=cfg.topk_frac,
+            quant_chunk=cfg.quant_chunk, error_feedback=cfg.error_feedback)
+        if cfg.fused_collective and self.compressor.name == "none":
+            raise ValueError(
+                "fused_collective requires a compressed wire format "
+                "(--compress q8/q4/topk): the fused reduction transports "
+                "the packed payloads, and the dense path has nothing to "
+                "keep packed")
+        if cfg.fused_collective and cfg.robust_agg != "none":
+            raise ValueError(
+                "fused_collective is incompatible with --robust-agg: it "
+                "replaces the aggregation chokepoint, and the robust "
+                "estimators need the full [K, N] stack replicated on every "
+                "device")
+        if cfg.fused_collective:
+            self.mean_fn = make_fused_mean(self.compressor, self.mesh, K)
+        else:
+            self.mean_fn = make_robust_mean(
+                cfg.robust_agg, trim_frac=cfg.trim_frac,
+                clip_mult=cfg.clip_mult, chunked=cfg.robust_chunked,
+                mesh=self.mesh)
 
         # common init: every client starts from the same weights (drawn on
         # a CPU generator, so they do not depend on the device)
@@ -177,6 +220,16 @@ class BlockwiseFederatedTrainer:
         if ci in self.linear_ids:
             return (self.cfg.lambda1, self.cfg.lambda2)
         return (0.0, 0.0)
+
+    def _init_comp_state(self, ci: int):
+        """Fresh [K]-stacked compressor state for block ``ci`` (or None),
+        seeded per (cfg.seed, block) as in the JAX engine."""
+        if self.compressor.name == "none":
+            return None
+        seed = int(np.random.default_rng(
+            [self.cfg.seed, 23, ci]).integers(2**31))
+        return stacked_init(self.compressor, self.cfg.K, self.block_size(ci),
+                            seed, self.device)
 
     def init_state(self) -> ClientState:
         """A fresh training state: a copy of the common init."""
@@ -272,7 +325,8 @@ class BlockwiseFederatedTrainer:
         batch_stats = tree_stack(bss) if self.has_bn else state.batch_stats
         opt = AdamState(torch.stack(mus), torch.stack(nus),
                         opt.count + xb.shape[1])
-        return ClientState(params, batch_stats, opt), torch.stack(losses)
+        return (ClientState(params, batch_stats, opt, state.comp),
+                torch.stack(losses))
 
     def _comm_mode(self, nadmm: int) -> str:
         """plain | bb_store (round 0 of a block) | bb (every bb_period_T
@@ -290,6 +344,12 @@ class BlockwiseFederatedTrainer:
         cfg = self.cfg
         order, mask = self.order, self.mask_for_block(ci)
         x = codec.get_trainable_stack(state.params, order, mask)
+        comp = state.comp
+        if self.compressor.name != "none":
+            # uplink-compress the deltas x_k - z: every update below (mean,
+            # duals, BB) runs on the reconstructions the server sees
+            payload, comp = self.compressor.encode(x - z[None, :], comp)
+            x = z[None, :] + decode_stack(payload, self.compressor, x.shape[1])
         if mode == "bb_store":
             x0 = x
         elif mode == "bb":
@@ -303,7 +363,7 @@ class BlockwiseFederatedTrainer:
         if self.algo.writeback:
             params = codec.put_trainable_stack(
                 params, order, mask, znew.unsqueeze(0).expand(cfg.K, -1))
-        return (ClientState(params, state.batch_stats, state.opt_state),
+        return (ClientState(params, state.batch_stats, state.opt_state, comp),
                 znew, ynew, rho, x0, yhat0, diag)
 
     @torch.no_grad()
@@ -325,9 +385,14 @@ class BlockwiseFederatedTrainer:
         return 100.0 * torch.stack(totals).cpu().numpy() / self.test_n
 
     def round_bytes_on_wire(self, N: int, n_active: int) -> int:
-        """Uplink bytes of a round: every participant ships its float32
-        block."""
-        return int(n_active) * 4 * int(N)
+        """Uplink bytes of a round: every participant ships one encoded
+        block payload (the float32 block on the dense path)."""
+        return int(n_active) * int(self.compressor.bytes_on_wire(N))
+
+    def round_bytes_fused(self, N: int) -> int:
+        """Predicted device-to-device bytes of the fused collective this
+        round: the packed reduce-scatter and all-gather."""
+        return int(fused_bytes_on_wire(self.compressor, N, self.D, self.cfg.K))
 
     # ------------------------------------------------------------------
     # the loop nest
@@ -363,10 +428,11 @@ class BlockwiseFederatedTrainer:
                     if cfg.bb_update else torch.zeros(K, 1, **f32))
                 state = ClientState(state.params, state.batch_stats,
                                     AdamState(torch.zeros(K, N, **f32),
-                                              torch.zeros(K, N, **f32), 0))
+                                              torch.zeros(K, N, **f32), 0),
+                                    self._init_comp_state(ci))
                 for nadmm in range(cfg.Nadmm):
                     t_round = time.perf_counter()
-                    launches0 = dict(gram.LAUNCHES)
+                    launches0 = _launch_counts()
                     loss_acc = None
                     stage_s = 0.0
                     for nepoch in range(cfg.Nepoch):
@@ -398,9 +464,11 @@ class BlockwiseFederatedTrainer:
                                stage_seconds=stage_s, train_seconds=train_s,
                                comm_seconds=comm_s, **diag)
                     rec["kernel_launches"] = {
-                        k: v - launches0[k] for k, v in gram.LAUNCHES.items()}
+                        k: v - launches0[k] for k, v in _launch_counts().items()}
                     if algo.communicates:
                         rec["bytes_on_wire"] = self.round_bytes_on_wire(N, K)
+                        if cfg.fused_collective:
+                            rec["bytes_fused"] = self.round_bytes_fused(N)
                     if cfg.check_results:
                         rec["accuracy"] = self.evaluate(state)
                     history.append(rec)

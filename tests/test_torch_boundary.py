@@ -40,7 +40,9 @@ def test_port_imports_no_jax():
     assert {f"{PORT}.{m}" for m in (
         "data.cifar10", "models.simple", "models.resnet", "ops.gram",
         "parallel.mesh", "parallel.comm", "train.algorithms", "train.losses",
-        "train.engine", "drivers.common", "drivers.consensus_multi")} <= set(mods)
+        "train.engine", "drivers.common", "drivers.consensus_multi",
+        "ops.quant", "ops.packed_reduce", "compress.base",
+        "compress.quantize", "compress.error_feedback")} <= set(mods)
 
 
 def test_driver_refuses_cuda_without_a_card(monkeypatch):
@@ -87,7 +89,7 @@ def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(cuda_build.shutil, "which", lambda name: None)
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
     monkeypatch.setattr(cuda_build, "_libs", {})
-    for name in ("infonce", "gram"):
+    for name in ("infonce", "gram", "quant"):
         with pytest.raises(RuntimeError, match="nvcc not found"):
             cuda_build.load_library(name)
     assert list(tmp_path.glob("*.so")) == []

@@ -209,7 +209,8 @@ def test_final_batch_stats_match(runs):
 def test_records_carry_timings_and_no_launches_on_cpu(runs):
     for r in runs["thist"]:
         assert r["round_seconds"] >= r["train_seconds"] >= 0.0
-        assert r["kernel_launches"] == {"gram": 0}
+        assert r["kernel_launches"] == {"gram": 0, "quantize_chunks": 0,
+                                        "dequant_add": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -313,7 +314,8 @@ def test_driver_defaults_are_the_reference_ones():
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--compress", "q8"], "not ported"),
+    (["--participation", "0.5"], "not ported"),
+    (["--compress", "topk"], "not ported"),
     (["--fused-rounds"], "not ported"),
     (["--fault-spec", "drop=0.5"], "not ported"),
 ])
