@@ -16,14 +16,23 @@ which stops the script with a non-zero exit if it fails:
    and in Zhat; then, at the path's shape, the time per call of kernel
    and plain version from CUDA events around 200 back-to-back calls
    (``ms``, host launch cost included), the kernels' device time from
-   ``torch.profiler`` (``device_ms``), and the card's bound;
+   ``torch.profiler`` (``device_ms``), the host-only time per call
+   (``host_ms``: ``time.perf_counter`` around the calls, read before the
+   device is synchronised), and the card's bound;
 4. Gram kernel vs plain: ``gram`` against ``gram_plain`` at [10, 928] (the
    ResNet18 stem block's shard), [10, 2,360,320] (the largest block's
-   shard), [1, 1], [3, 513], [16, 100,003], [128, 4,096] and a slab with
-   an all-zero row, within ``|kernel - plain| <= 1e-5 * max_i G_ii + 1e-6``;
-   then at the largest shard the time per call of the kernel, the plain
-   version and ``torch.matmul(a, a.T)`` (TF32 off; the library yardstick),
-   the kernel's device time and the bound;
+   shard), [1, 1], [3, 513], [16, 100,003], [128, 4,096], K = 17 and 33
+   (tiled), n under one pipeline stage ([10, 300], [17, 700]), a slab with
+   an all-zero row, column slabs ``w[:, 3:3+n]`` of a wider [10, n+8]
+   matrix (rows off 16-byte alignment) at n = 928 and 100,003, and a row
+   stride that is not a multiple of 4, within
+   ``|kernel - plain| <= 1e-5 * max_i G_ii + 1e-6``, symmetric, repeating
+   bit for bit; then three calls back to back at other n and the first
+   again (the cross-block counter resets, G repeats bit for bit).  At the
+   largest shard and at the stem: the time per call of the kernel and of
+   ``torch.matmul(a, a.T)`` (TF32 off; the library yardstick), taken in
+   turns, the plain version's, the kernel's device time, the host-only
+   time per call, the device kernels per call (1) and the bound;
 5. slice 1 at full width: ``drivers.federated_cpc`` with its defaults
    (K=4, Lc=256, Rc=32, batch 128, patch 32, Niter=10, Nloop=1, Nadmm=1:
    one rotation of 4 communication rounds; nothing cut), with the InfoNCE
@@ -65,10 +74,12 @@ which stops the script with a non-zero exit if it fails:
     [7, 512], [37, 1,000] and [5, 2,048],
     each with a zero row and a saturating row, and a row holding inf and
     NaN (its scale only: the cast of NaN to int8 has no defined value).
-    Scale and q exactly equal, B2 bit for bit.  Then at [9,220, 256] the
-    time per call (CUDA events over a ring of inputs larger than the L2
-    cache), the device time, the plain versions' time, the bound, and
-    ``torch.addcmul`` as B2's library yardstick;
+    Scale and q exactly equal; B2 bit for bit out of place, into a given
+    ``out`` and in place (``out=acc``).  Then at [9,220, 256], over a ring
+    of inputs larger than the L2 cache: the time per call of B2 out of
+    place against ``torch.addcmul`` and in place against
+    ``Tensor.addcmul_`` (each pair taken in turns), B1's, the device and
+    host-only times, the plain versions' time and the bound;
 12. slice 3 at full width: ``drivers.consensus_multi`` with ResNet18,
     ``--compress q8 --fused-collective --num-devices 2`` and slice 2's cuts
     (20 rounds), the B1/B2 launch counts set to 0 just before and read just
@@ -79,17 +90,20 @@ which stops the script with a non-zero exit if it fails:
     ``y + rho*x`` stack's fused mean through the kernels and through the
     plain versions bit for bit equal, at D=2 (butterfly) and D=5 (ring),
     both within ``(log2 D + 1)`` grid steps of the dense mean;
-14. a profile of one comm step (encode, fused mean, ADMM update) at the
-    largest block (printed only).
+14. a profile of one comm step (encode, fused mean with the hops
+    accumulating in place, ADMM update) at the largest block (printed
+    only).
 
-The line before the last is the per-kernel JSON record; the last line is
-``{"ok": true, "device": {...}}``.
+The line before the last is the per-kernel JSON record (with each
+kernel's host-only time, and B3's stem and B2's in-place fields); the last
+line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -118,10 +132,17 @@ GRAD_RTOL, GRAD_ATOL_REL = 1e-4, 1e-5
 #: largest diagonal entry (Cauchy-Schwarz), so that sets the rounding scale.
 GRAM_REL, GRAM_ABS = 1e-5, 1e-6
 #: the Gram shapes: the stem and largest shards of ResNet18 at D=2, then
-#: edge cases
+#: edge cases (one column, K past one tile and past two, n under one
+#: pipeline stage)
 GRAM_SHAPES = ((10, 928), (10, 2_360_320), (1, 1), (3, 513), (16, 100_003),
-               (128, 4096))
+               (128, 4096), (17, 5_000), (33, 5_000), (10, 300), (17, 700))
 GRAM_PATH_SHAPE = (10, 2_360_320)
+GRAM_STEM_SHAPE = (10, 928)
+#: column slabs w[:, 3:3+n] of a wider [10, n+8] matrix: rows off 16 B
+GRAM_SLAB_NS = (928, 100_003)
+#: back-to-back calls at different n (each several column chunks), then
+#: the first again
+GRAM_SEQUENCE = ((10, 100_003), (10, 1_000_000), (17, 60_000))
 #: slice 2 as chip_smoke drives it (see the module docstring for the cuts)
 SLICE2_ARGV = ["--device", "cuda", "--model", "resnet18", "--robust-agg",
                "krum", "--robust-chunked", "--num-devices", "2", "--Nloop",
@@ -191,9 +212,40 @@ def cuda_time_ms(fn, iters: int = 200, warmup: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def profiled_device_ms(fn, name: str, iters: int = 50):
-    """Device time per call (ms) of the CUDA kernels whose name contains
-    ``name``, from ``torch.profiler``; None if the profiler saw none."""
+def paired_ms(fns: dict, iters: int = 200, rounds: int = 3) -> dict:
+    """``cuda_time_ms`` of each function, taken in turns (a, b, a, b, ...)
+    over ``rounds`` rounds; the median of each.  A kernel and the library
+    call it is compared with are timed so, because the host's speed drifts
+    within a call."""
+    times = {k: [] for k in fns}
+    for _ in range(rounds):
+        for k, fn in fns.items():
+            times[k].append(cuda_time_ms(fn, iters=iters, warmup=10))
+    return {k: statistics.median(v) for k, v in times.items()}
+
+
+def host_time_ms(fn, iters: int = 200, warmup: int = 20) -> float:
+    """Host time per call (ms): ``time.perf_counter`` around ``iters``
+    back-to-back calls, read before the device is synchronised, so it is
+    the wrapper's own cost (checks, allocation, the launch) and not the
+    kernel's."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) * 1e3 / iters
+
+
+def profiled(fn, name: str, iters: int = 50) -> tuple:
+    """(device time per call (ms) of the CUDA kernels whose name contains
+    ``name``, or None if the profiler saw none; device kernels of any name
+    per call), from ``torch.profiler``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -203,9 +255,16 @@ def profiled_device_ms(fn, name: str, iters: int = 50):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if name in e.key)
-    return us / iters / 1e3 if us > 0 else None
+    ev = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    us = sum(e.self_device_time_total for e in ev if name in e.key)
+    return (us / iters / 1e3 if us > 0 else None,
+            sum(e.count for e in ev) / iters)
+
+
+def profiled_device_ms(fn, name: str, iters: int = 50):
+    """Device time per call (ms) of the CUDA kernels whose name contains
+    ``name``, from ``torch.profiler``; None if the profiler saw none."""
+    return profiled(fn, name, iters)[0]
 
 
 def fwd_bound(D: int, P: int) -> tuple:
@@ -267,7 +326,8 @@ def build() -> None:
 
 def check_kernels(dev, card: str):
     """Phase 3; returns ({kernel: max_abs_err at the path's shape},
-    {kernel: (kernel_ms, plain_ms, (bound_ms, bound_by))})."""
+    {kernel: (kernel_ms, plain_ms, (bound_ms, bound_by))},
+    {kernel: device_ms}, {kernel: {"host_ms": host-only ms a call}})."""
     import torch
 
     from federated_pytorch_test_tpu_torch.ops import infonce
@@ -326,12 +386,18 @@ def check_kernels(dev, card: str):
         "infonce_bwd": profiled_device_ms(
             lambda: infonce.infonce_bwd(Z, Zh, lp, ghat), "infonce_bwd_"),
     }
+    extra = {
+        "infonce_fwd": {"host_ms": host_time_ms(
+            lambda: infonce.infonce_fwd(Z, Zh))},
+        "infonce_bwd": {"host_ms": host_time_ms(
+            lambda: infonce.infonce_bwd(Z, Zh, lp, ghat))},
+    }
     for name, (k_ms, p_ms, (b_ms, b_by)) in timing.items():
         log(json.dumps({"kernel": name, "D": D, "P": P, "kernel_ms": k_ms,
-                        "device_ms": device[name], "plain_ms": p_ms,
-                        "bound_ms": b_ms, "bound_by": b_by,
+                        "device_ms": device[name], **extra[name],
+                        "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
                         "library_ms": None, "card": card}))
-    return path_err, timing, device
+    return path_err, timing, device, extra
 
 
 def gram_within(got, want) -> tuple:
@@ -347,53 +413,108 @@ def gram_bound(K: int, n: int) -> tuple:
     return (K * n + K * K) * 4, 2 * K * K * n
 
 
+def gram_cases(dev, gen) -> list:
+    """(label, A) of phase 4: GRAM_SHAPES, a slab with an all-zero row,
+    column slabs ``w[:, 3:3+n]`` of a wider [10, n+8] matrix (base 12 B off
+    16-byte alignment), and a row stride that is not a multiple of 4."""
+    import torch
+
+    cases = [(f"[{K}, {n}]", torch.randn(K, n, generator=gen, device=dev))
+             for K, n in GRAM_SHAPES]
+    a = torch.randn(10, 100_003, generator=gen, device=dev)
+    a[4] = 0.0
+    cases.append(("[10, 100003] zero row 4", a))
+    for n in GRAM_SLAB_NS:
+        w = torch.randn(10, n + 8, generator=gen, device=dev)
+        cases.append((f"w[:, 3:3+{n}] of [10, {n + 8}]", w[:, 3:3 + n]))
+    w = torch.randn(10, 1_001, generator=gen, device=dev)
+    cases.append(("w[:, :1000] of [10, 1001] (lda % 4 = 1)", w[:, :1_000]))
+    return cases
+
+
 def check_gram(dev, card: str):
     """Phase 4; returns (max_abs_err at the path's shape,
-    (kernel_ms, plain_ms, library_ms, (bound_ms, bound_by)), device_ms)."""
+    (kernel_ms, plain_ms, library_ms, (bound_ms, bound_by)), device_ms,
+    {the host-only, kernels-per-call and stem fields of the JSON line})."""
     import torch
 
     from federated_pytorch_test_tpu_torch.ops import gram
 
     gen = torch.Generator(device=dev).manual_seed(0)
     path_err = None
-    cases = [(K, n, False) for K, n in GRAM_SHAPES] + [(10, 100_003, True)]
-    for K, n, zero in cases:
-        a = torch.randn(K, n, generator=gen, device=dev)
-        if zero:
-            a[4] = 0.0
+    for label, a in gram_cases(dev, gen):
         g_k = gram.gram(a)
         g_p = gram.gram_plain(a)
         repeat = torch.equal(g_k, gram.gram(a))
         torch.cuda.synchronize()
         err, tol, ok = gram_within(g_k, g_p)
-        log(f"gram check K={K} n={n} zero_row={zero}: max_abs_err={err:.3e} "
+        vec = gram.vector_path(a.data_ptr(), a.stride(0) if a.shape[0] > 1
+                               else 0, a.shape[1])
+        log(f"gram check {label} strides {a.stride()} "
+            f"{'16-byte' if vec else '4-byte'} copies: max_abs_err={err:.3e} "
             f"tol={tol:.3e} symmetric={torch.equal(g_k, g_k.t())} "
             f"repeats={repeat}")
         if not (ok and repeat and torch.equal(g_k, g_k.t())):
             fail(f"gram kernel disagrees with gram_plain (or is not symmetric "
-                 f"or not repeatable) at K={K} n={n} zero_row={zero}")
-        if zero and not (g_k[4].eq(0).all() and g_k[:, 4].eq(0).all()):
+                 f"or not repeatable) at {label}")
+        if "zero row" in label and not (g_k[4].eq(0).all()
+                                        and g_k[:, 4].eq(0).all()):
             fail("gram of a zero row is not a zero row and column")
-        if (K, n) == GRAM_PATH_SHAPE:
+        if tuple(a.shape) == GRAM_PATH_SHAPE:
             path_err = err
+    # back to back at three n (each with several chunks, so the cross-block
+    # counter is used), then the first again: the counter was reset, and G
+    # repeats bit for bit
+    seq = [torch.randn(K, n, generator=gen, device=dev)
+           for K, n in GRAM_SEQUENCE]
+    first = [gram.gram(a) for a in seq]
+    again = gram.gram(seq[0])
+    torch.cuda.synchronize()
+    for (K, n), a, g_k in zip(GRAM_SEQUENCE, seq, first):
+        err, tol, ok = gram_within(g_k, gram.gram_plain(a))
+        if not ok:
+            fail(f"gram kernel disagrees with gram_plain at [{K}, {n}] in a "
+                 f"back-to-back sequence")
+    log(f"gram sequence {list(GRAM_SEQUENCE)} then the first again: "
+        f"bit-for-bit repeat {torch.equal(first[0], again)}")
+    if not torch.equal(first[0], again):
+        fail("gram does not repeat bit for bit after calls at other n")
 
+    out = {}
+    for key, (K, n) in (("", GRAM_PATH_SHAPE), ("stem_", GRAM_STEM_SHAPE)):
+        a = torch.randn(K, n, generator=gen, device=dev)
+        big = key == ""
+        turns = paired_ms({"kernel": lambda: gram.gram(a),
+                           "library": lambda: torch.matmul(a, a.t())},
+                          iters=100)
+        k_ms, l_ms = turns["kernel"], turns["library"]
+        p_ms = cuda_time_ms(lambda: gram.gram_plain(a), iters=3 if big else 50,
+                            warmup=1)
+        dev_ms, per_call = profiled(lambda: gram.gram(a), "gram_")
+        out[key] = {"kernel_ms": k_ms, "device_ms": dev_ms,
+                    "host_ms": host_time_ms(lambda: gram.gram(a)),
+                    "kernels_per_call": per_call, "plain_ms": p_ms,
+                    "library_ms": l_ms, "bound": bound_ms(*gram_bound(K, n))}
+        if per_call != 1:
+            fail(f"gram at [{K}, {n}] ran {per_call} device kernels a call; "
+                 f"expected 1")
+    big, stem = out[""], out["stem_"]
+    extra = {"host_ms": big["host_ms"],
+             "kernels_per_call": big["kernels_per_call"],
+             **{f"stem_{k}": stem[k] for k in (
+                 "kernel_ms", "device_ms", "host_ms", "kernels_per_call",
+                 "plain_ms", "library_ms")},
+             "stem_bound_ms": stem["bound"][0],
+             "stem_bound_by": stem["bound"][1]}
     K, n = GRAM_PATH_SHAPE
-    a = torch.randn(K, n, generator=gen, device=dev)
-    k_ms = cuda_time_ms(lambda: gram.gram(a), iters=100, warmup=10)
-    p_ms = cuda_time_ms(lambda: gram.gram_plain(a), iters=3, warmup=1)
-    l_ms = cuda_time_ms(lambda: torch.matmul(a, a.t()), iters=100, warmup=10)
-    device_ms = profiled_device_ms(lambda: gram.gram(a), "gram_")
-    b = bound_ms(*gram_bound(K, n))
-    stem = torch.randn(10, 928, generator=gen, device=dev)
-    stem_ms = cuda_time_ms(lambda: gram.gram(stem))
-    stem_lib = cuda_time_ms(lambda: torch.matmul(stem, stem.t()))
-    log(json.dumps({"kernel": "gram", "K": K, "n": n, "kernel_ms": k_ms,
-                    "device_ms": device_ms, "plain_ms": p_ms,
-                    "library_ms": l_ms, "bound_ms": b[0], "bound_by": b[1],
-                    "stem_kernel_ms": stem_ms, "stem_library_ms": stem_lib,
-                    "stem_bound_ms": bound_ms(*gram_bound(10, 928))[0],
-                    "card": card}))
-    return path_err, (k_ms, p_ms, l_ms, b), device_ms
+    log(json.dumps({"kernel": "gram", "K": K, "n": n,
+                    "kernel_ms": big["kernel_ms"],
+                    "device_ms": big["device_ms"], "plain_ms": big["plain_ms"],
+                    "library_ms": big["library_ms"],
+                    "bound_ms": big["bound"][0], "bound_by": big["bound"][1],
+                    **extra, "card": card}))
+    return path_err, (big["kernel_ms"], big["plain_ms"], big["library_ms"],
+                      big["bound"]), big["device_ms"], extra
 
 
 def run_slice(dev):
@@ -745,7 +866,7 @@ def quant_bound(c: int, w: int, name: str) -> tuple:
 def check_quant(dev, card: str):
     """Phase 11; returns ({kernel: max_abs_err at the path's shape},
     {kernel: (kernel_ms, plain_ms, library_ms, (bound_ms, bound_by))},
-    {kernel: device_ms})."""
+    {kernel: device_ms}, {kernel: {host-only and in-place fields}})."""
     import torch
 
     from federated_pytorch_test_tpu_torch.ops import quant
@@ -762,18 +883,26 @@ def check_quant(dev, card: str):
             q_k, s_k = quant.quantize_chunks(v, qmax)
             q_p, s_p = quant.quantize_plain(v, qmax)
             acc = torch.randn(c, w, generator=gen, device=dev)
-            o_k = quant.dequant_add(acc, q_p, s_p)
             o_p = quant.dequant_add_plain(acc, q_p, s_p)
+            # B2 out of place, into a given out, and in place (out=acc) on
+            # a clone of acc
+            o_k = quant.dequant_add(acc, q_p, s_p)
+            o_out = torch.empty_like(acc)
+            quant.dequant_add(acc, q_p, s_p, out=o_out)
+            o_in = acc.clone()
+            quant.dequant_add(o_in, q_p, s_p, out=o_in)
             torch.cuda.synchronize()
             s_err = float((s_k - s_p).abs().max())
             q_err = int((q_k.int() - q_p.int()).abs().max())
-            o_err = float((o_k - o_p).abs().max())
+            o_err = max(float((o - o_p).abs().max()) for o in (o_k, o_out, o_in))
             sat = c < 3 or int(q_k[2, w // 2]) == -qmax
+            b2_same = [torch.equal(o, o_p) for o in (o_k, o_out, o_in)]
             log(f"quant check [{c}, {w}] qmax={qmax}: scale max_abs_err="
                 f"{s_err:.3e} q max_abs_err={q_err} dequant_add max_abs_err="
-                f"{o_err:.3e} saturating row -> -qmax: {sat}")
+                f"{o_err:.3e} bitwise (out of place, into out, in place) "
+                f"{b2_same} saturating row -> -qmax: {sat}")
             if not (same_scale(s_k, s_p) and torch.equal(q_k, q_p)
-                    and torch.equal(o_k, o_p) and sat):
+                    and all(b2_same) and sat):
                 fail(f"quantize/dequant_add kernels disagree with their plain "
                      f"versions at [{c}, {w}] qmax={qmax}")
             if (c, w) == QUANT_PATH_SHAPE and qmax == 127:
@@ -818,23 +947,38 @@ def check_quant(dev, card: str):
     b2 = ring(lambda i: quant.dequant_add(accs[i], *packs[i]))
     b2_plain = ring(lambda i: quant.dequant_add_plain(accs[i], *packs[i]))
     b2_lib = ring(lambda i: torch.addcmul(accs[i], packs[i][0], safes[i]))
+    # in place: the accumulators grow by one decoded payload a call
+    b2_in = ring(lambda i: quant.dequant_add(accs[i], *packs[i], out=accs[i]))
+    b2_in_lib = ring(lambda i: accs[i].addcmul_(packs[i][0], safes[i]))
+    out_of_place = paired_ms({"kernel": b2, "library": b2_lib})
+    in_place = paired_ms({"kernel": b2_in, "library": b2_in_lib})
     timing = {
         "quantize_chunks": (cuda_time_ms(b1), cuda_time_ms(b1_plain, iters=50),
                             None, bound_ms(*quant_bound(c, w, "quantize_chunks"))),
-        "dequant_add": (cuda_time_ms(b2), cuda_time_ms(b2_plain, iters=50),
-                        cuda_time_ms(b2_lib),
+        "dequant_add": (out_of_place["kernel"],
+                        cuda_time_ms(b2_plain, iters=50),
+                        out_of_place["library"],
                         bound_ms(*quant_bound(c, w, "dequant_add"))),
     }
     device = {"quantize_chunks": profiled_device_ms(b1, "quantize_"),
-              "dequant_add": profiled_device_ms(b2, "dequant_add_kernel")}
+              "dequant_add": profiled_device_ms(b2, "dequant_add_")}
+    extra = {
+        "quantize_chunks": {"host_ms": host_time_ms(b1)},
+        "dequant_add": {"host_ms": host_time_ms(b2),
+                        "inplace_ms": in_place["kernel"],
+                        "inplace_device_ms": profiled_device_ms(
+                            b2_in, "dequant_add_"),
+                        "inplace_host_ms": host_time_ms(b2_in),
+                        "inplace_library_ms": in_place["library"]},
+    }
     for name, (k_ms, p_ms, l_ms, (b_ms, b_by)) in timing.items():
         log(json.dumps({"kernel": name, "c": c, "chunk": w, "qmax": 127,
                         "kernel_ms": k_ms, "device_ms": device[name],
-                        "plain_ms": p_ms, "library_ms": l_ms,
+                        **extra[name], "plain_ms": p_ms, "library_ms": l_ms,
                         "bound_ms": b_ms, "bound_by": b_by,
                         "timed_over": f"a ring of {QUANT_RING} inputs",
                         "card": card}))
-    return path_err, timing, device
+    return path_err, timing, device, extra
 
 
 def run_slice3(dev):
@@ -1034,8 +1178,8 @@ def main() -> None:
     card, dev = check_device()
     sys.path.insert(0, ROOT)
     build()
-    path_err, timing, device = check_kernels(dev, card)
-    gram_err, gram_timing, gram_device = check_gram(dev, card)
+    path_err, timing, device, extra = check_kernels(dev, card)
+    gram_err, gram_timing, gram_device, extra["gram"] = check_gram(dev, card)
     trainer, launches = run_slice(dev)
     check_path_data(trainer)
     profile_steps(trainer)
@@ -1044,7 +1188,8 @@ def main() -> None:
     raw_krum = check_gram_path_data(stack, trainer2)
     profile_slice2(trainer2, state2)
     del trainer2, state2, stack
-    quant_err, quant_timing, quant_device = check_quant(dev, card)
+    quant_err, quant_timing, quant_device, quant_extra = check_quant(dev, card)
+    extra.update(quant_extra)
     quant_launches, stack3, trainer3, state3 = run_slice3(dev)
     check_fused_path_data(stack3, trainer3)
     profile_comm_step(trainer3, state3)
@@ -1061,7 +1206,8 @@ def main() -> None:
             "replaces": replaces[name], "launches": launches[name],
             "max_abs_err": path_err[name], "ms": k_ms,
             "device_ms": device[name], "plain_ms": p_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            **extra[name]})
     k_ms, p_ms, l_ms, (b_ms, b_by) = gram_timing
     kernels.append({
         "name": "gram", "route": "cuda",
@@ -1069,7 +1215,7 @@ def main() -> None:
         "replaces": "federated_pytorch_test_tpu/ops/comm_kernels.py:250",
         "launches": gram_launches, "max_abs_err": gram_err, "ms": k_ms,
         "device_ms": gram_device, "plain_ms": p_ms, "bound_ms": b_ms,
-        "bound_by": b_by, "library_ms": l_ms})
+        "bound_by": b_by, "library_ms": l_ms, **extra["gram"]})
     for name, (k_ms, p_ms, l_ms, (b_ms, b_by)) in quant_timing.items():
         kernels.append({
             "name": name, "route": "cuda",
@@ -1078,7 +1224,8 @@ def main() -> None:
                          "dequant_add": DEQUANT_SITE}[name],
             "launches": quant_launches[name], "max_abs_err": quant_err[name],
             "ms": k_ms, "device_ms": quant_device[name], "plain_ms": p_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": l_ms})
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": l_ms,
+            **extra[name]})
     log(card)                        # again here, where an output tail keeps it
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -19,24 +19,34 @@
 // 2,397,200 B: 3.5 us at 3.35 TB/s.  B2 reads 11,838,480 B and writes
 // 9,441,280 B: 6.4 us.
 //
-// What the design does about it.  One warp takes one row at a time (a
-// warp-stride loop over rows), so every element is read from device memory
+// What the design does about it.  Every element is read from device memory
 // once, with neighbouring lanes on neighbouring 16-byte vectors (coalesced):
-//   * B1 keeps the row in registers (up to 8 float4 a lane, rows of at most
+//   * B1 takes a row a warp (a warp-stride loop over rows), keeps the row in
+//     registers (up to 8 float4 a lane, rows of at most
 //     1,024 floats), reduces max|v| with warp shuffles, divides once for the
 //     scale, then quantizes from the registers and stores 4 int8 a lane-word.
 //     Max is exact in any order, so the scale does not depend on the
 //     reduction tree.  The max propagates NaN, as jnp.max and torch.amax
 //     do (fmaxf would drop it).
-//   * B2 reads the row's scale once and streams acc and q: 16-byte loads of
-//     acc, 4-byte loads of q, 16-byte stores.  __fmul_rn then __fadd_rn, so
-//     the compiler cannot contract the two into one fused multiply-add: the
-//     result is the plain version's acc + q * safe bit for bit.
-// Rows whose width is not a multiple of 4 (or longer than 1,024 for B1), or
+//   * B2: a few operations an element, so what a call adds beyond the
+//     bytes is host work and any extra pass: an output copied back into
+//     the hop's buffer would be one more pass of 18.9 MB.  So the kernel
+//     may write in place (out == acc; no __restrict__ on either, every
+//     element is read and then written by the same thread), the hop
+//     accumulates straight into its buffer, and the wrapper binds its
+//     launch once (ops/cuda_build.py).  The matrix is walked in warp
+//     blocks of 512 elements: a lane loads 16 q bytes in one 16-byte load
+//     and trades them through shared memory for the q words of the four
+//     float4 of acc it owns, 32 float4 apart, so every warp load and store
+//     is 512 contiguous bytes.  __fmul_rn then __fadd_rn, so the compiler
+//     cannot contract the two into one fused multiply-add: the result is
+//     the plain version's acc + q * safe bit for bit.
+// B1 rows whose width is not a multiple of 4 (or longer than 1,024), or
 // whose base is not 16-byte aligned, take a scalar path with the same
-// arithmetic.  Division is IEEE (no fast math): rintf(v / safe) is the
-// half-to-even rounding of jnp.round and torch.round.  Rows are independent:
-// nothing accumulates across blocks.
+// arithmetic; so does B2 (a warp a row) when cols is not a multiple of 4
+// or a base is not 16-byte aligned.  Division is IEEE (no fast math):
+// rintf(v / safe) is the half-to-even rounding of jnp.round and
+// torch.round.  Nothing accumulates across blocks.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -128,32 +138,73 @@ __device__ __forceinline__ float dq1(float a, signed char qq, float safe) {
   return __fadd_rn(a, __fmul_rn((float)qq, safe));
 }
 
-// B2: vector path when VEC (cols % 4 == 0, aligned), else one element a lane.
-template <bool VEC>
+// B2, vector path (cols % 4 == 0; acc, out and q 16-byte aligned): the
+// matrix as a flat run of float4, cut into warp blocks of 128 float4 (512
+// elements).  Lane L loads the block's q bytes [16L, 16L + 16) in one
+// 16-byte load and parks them in shared memory; it then loads the four
+// float4 of acc it owns, 32 apart (each warp load is 512 contiguous bytes),
+// takes their q words back from shared memory, and stores four float4.  A
+// float4 lies in one row (cols % 4 == 0); its row's scale comes from the
+// read-only cache.  acc and out may be one buffer (no __restrict__): every
+// element is read, then written, by the same thread.
 __global__ void __launch_bounds__(kThreads)
-dequant_add_kernel(const float* __restrict__ acc, const signed char* __restrict__ q,
-                   const float* __restrict__ scale, long long c, int cols,
-                   float* __restrict__ out) {
+dequant_add_vec_kernel(const float* acc, const signed char* __restrict__ q,
+                       const float* __restrict__ scale, long long n4, int c4, float* out) {
+  __shared__ int4 qs[kWarps][32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long nblk = (n4 + 127) >> 7;
+  const long long stride = (long long)gridDim.x * kWarps;
+  const float4* a4 = reinterpret_cast<const float4*>(acc);
+  float4* o4 = reinterpret_cast<float4*>(out);
+  const char4* qc = reinterpret_cast<const char4*>(qs[warp]);
+  for (long long b = (long long)blockIdx.x * kWarps + warp; b < nblk; b += stride) {
+    const long long j0 = b << 7;               // the block's first float4
+    const long long jq = j0 + 4 * lane;        // the lane's q bytes, in float4 units
+    int4 v = make_int4(0, 0, 0, 0);
+    if (jq + 4 <= n4) {
+      v = __ldg(reinterpret_cast<const int4*>(q) + (jq >> 2));
+    } else {                                   // the ragged end: 4 bytes at a time
+      const int* qw = reinterpret_cast<const int*>(q);
+      if (jq < n4) v.x = __ldg(qw + jq);
+      if (jq + 1 < n4) v.y = __ldg(qw + jq + 1);
+      if (jq + 2 < n4) v.z = __ldg(qw + jq + 2);
+    }
+    qs[warp][lane] = v;
+    __syncwarp();
+    float4 a[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const long long j = j0 + 32 * k + lane;
+      if (j < n4) a[k] = a4[j];
+    }
+    long long j = j0 + lane;
+    long long row = j / c4;
+#pragma unroll
+    for (int k = 0; k < 4; ++k, j += 32) {
+      if (j < n4) {
+        while (j >= (row + 1) * c4) ++row;
+        const float safe = safe_of(__ldg(scale + row));
+        const char4 qq = qc[32 * k + lane];
+        o4[j] = make_float4(dq1(a[k].x, qq.x, safe), dq1(a[k].y, qq.y, safe),
+                            dq1(a[k].z, qq.z, safe), dq1(a[k].w, qq.w, safe));
+      }
+    }
+    __syncwarp();                              // qs is rewritten by the next block
+  }
+}
+
+// B2, scalar path: a warp a row, one element a lane (any width, any
+// alignment).
+__global__ void __launch_bounds__(kThreads)
+dequant_add_scalar_kernel(const float* acc, const signed char* __restrict__ q,
+                          const float* __restrict__ scale, long long c, int cols, float* out) {
   const int lane = threadIdx.x & 31;
   const long long nwarps = (long long)gridDim.x * kWarps;
   for (long long row = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5); row < c;
        row += nwarps) {
     const float safe = safe_of(__ldg(scale + row));
     const long long base = row * cols;
-    if (VEC) {
-      const float4* a4 = reinterpret_cast<const float4*>(acc + base);
-      const char4* q4 = reinterpret_cast<const char4*>(q + base);
-      float4* o4 = reinterpret_cast<float4*>(out + base);
-      for (int i = lane; i < (cols >> 2); i += 32) {
-        const float4 a = __ldg(a4 + i);
-        const char4 b = q4[i];
-        o4[i] = make_float4(dq1(a.x, b.x, safe), dq1(a.y, b.y, safe),
-                            dq1(a.z, b.z, safe), dq1(a.w, b.w, safe));
-      }
-    } else {
-      for (int i = lane; i < cols; i += 32)
-        out[base + i] = dq1(__ldg(acc + base + i), q[base + i], safe);
-    }
+    for (int i = lane; i < cols; i += 32) out[base + i] = dq1(acc[base + i], q[base + i], safe);
   }
 }
 
@@ -191,17 +242,21 @@ int quantize_rows(const float* v, long long c, int cols, float qmax, signed char
 }
 
 // out [c, cols] = acc + q * safe(scale) row by row; float32 acc and out,
-// int8 q, float32 scale [c]; all contiguous, out apart from the inputs.
-// c >= 1, cols >= 1.  Returns cudaGetLastError().
+// int8 q, float32 scale [c]; all contiguous.  out may be acc itself (in
+// place) but must not overlap it otherwise.  c >= 1, cols >= 1.  Returns
+// cudaGetLastError().
 int dequant_add(const float* acc, const signed char* q, const float* scale, long long c,
                 int cols, float* out, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (c < 1 || cols < 1) return (int)cudaErrorInvalidValue;
-  const int blocks = blocks_for(c);
-  if (cols % 4 == 0 && aligned(acc, 16) && aligned(out, 16) && aligned(q, 4))
-    dequant_add_kernel<true><<<blocks, kThreads, 0, s>>>(acc, q, scale, c, cols, out);
-  else
-    dequant_add_kernel<false><<<blocks, kThreads, 0, s>>>(acc, q, scale, c, cols, out);
+  if (cols % 4 == 0 && aligned(acc, 16) && aligned(out, 16) && aligned(q, 16)) {
+    const long long n4 = c * cols / 4;
+    const long long b = ((n4 + 127) / 128 + kWarps - 1) / kWarps;
+    const int blocks = (int)(b < kMaxBlocks ? b : kMaxBlocks);
+    dequant_add_vec_kernel<<<blocks, kThreads, 0, s>>>(acc, q, scale, n4, cols / 4, out);
+  } else {
+    dequant_add_scalar_kernel<<<blocks_for(c), kThreads, 0, s>>>(acc, q, scale, c, cols, out);
+  }
   return (int)cudaGetLastError();
 }
 

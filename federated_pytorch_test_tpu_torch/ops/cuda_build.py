@@ -5,6 +5,12 @@ first use into ``build/torch_kernels/lib<name>-<hash>.so`` at the repo
 root (the hash covers the source and the flags, so an edited source is
 rebuilt).  Nothing is compiled when a module is imported: the CPU tests
 import every module on a machine that has no ``nvcc``.
+
+The lean launch path: a wrapper binds its C function once with
+:func:`bind` and the CUDA runtime's entry points once with
+:func:`cuda_runtime`, then keeps them in a module global.  A later launch
+takes no lock and looks nothing up: it reads the raw stream handle as an
+int and calls the typed ctypes function.
 """
 
 from __future__ import annotations
@@ -17,7 +23,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Callable, Dict, Sequence, Tuple
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -78,3 +84,29 @@ def load_library(name: str) -> ctypes.CDLL:
             _libs[name] = ctypes.CDLL(str(lib_path))
             BUILD_INFO[name] = info
         return _libs[name]
+
+
+def bind(name: str, func: str, argtypes: Sequence) -> ctypes._CFuncPtr:
+    """The C function ``func`` of ``csrc/<name>.cu`` (built and loaded at
+    first use), typed with ``argtypes`` and an ``int`` return (the
+    ``cudaError_t`` of the launch).  Called once per wrapper; the wrapper
+    keeps what it returns."""
+    fn = getattr(load_library(name), func)
+    fn.argtypes = list(argtypes)
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def cuda_runtime() -> Tuple[Callable[[int], int], Callable[[], int]]:
+    """``(raw_stream, current_device)``: the raw handle, as an int, of the
+    current stream of a device index (no ``torch.cuda.Stream`` object is
+    built), and the current device's index.  Only CUDA builds of torch have
+    them; called on the CUDA branch of a wrapper, never at import."""
+    import torch
+
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    dev = getattr(torch._C, "_cuda_getDevice", None)
+    if raw is None or dev is None:
+        raise RuntimeError("this build of torch has no CUDA runtime: cannot "
+                           "launch the CUDA kernels")
+    return raw, dev

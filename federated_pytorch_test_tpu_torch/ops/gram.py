@@ -6,6 +6,12 @@ The kernel ``gram`` of ``csrc/gram.cu`` replaces the Pallas TPU kernel
 of a ``[K, n]`` float32 client slab, krum's distance pass under
 ``--robust-chunked`` (``parallel/comm.py``).
 
+The kernel is one launch per call: persistent blocks stream contiguous
+column chunks (:func:`plan`) through a ring of shared-memory stages, and
+the last block to finish sums the chunks' partials in chunk order.  The
+wrapper keeps that sum's workspace per (device, stream); its only
+allocation per call is G.
+
 Dispatch is by the tensor's device, as in ``ops/infonce.py``: a CPU tensor
 takes :func:`gram_plain`, a CUDA tensor launches the kernel or raises.  The
 wrapper counts its launches in :data:`LAUNCHES`.
@@ -14,11 +20,12 @@ wrapper counts its launches in :data:`LAUNCHES`.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+import functools
+from typing import Dict, Tuple
 
 import torch
 
-from federated_pytorch_test_tpu_torch.ops.cuda_build import load_library
+from federated_pytorch_test_tpu_torch.ops import cuda_build
 
 #: launches of the kernel in this process (the wrapper adds one per launch)
 LAUNCHES = {"gram": 0}
@@ -28,10 +35,12 @@ SLAB = 512
 #: largest client count the kernel takes
 MAX_K = 128
 
-#: pass-1 block size and block budget of ``csrc/gram.cu``: two blocks for
-#: each of the H100's 132 SMs
+#: block size, columns of one pipeline stage (a float4 a thread) and block
+#: budget of ``csrc/gram.cu``: one persistent block on each of the H100's
+#: 132 SMs
 THREADS = 256
-MAX_BLOCKS = 264
+STAGE_COLS = 4 * THREADS
+MAX_BLOCKS = 132
 
 
 def gram_plain(a: torch.Tensor) -> torch.Tensor:
@@ -45,31 +54,72 @@ def gram_plain(a: torch.Tensor) -> torch.Tensor:
     return g
 
 
-def plan(K: int, n: int) -> Tuple[int, int]:
-    """(chunk, nchunks): the kernel's split of the n columns over blocks.
-
-    K <= 16 is one row tile; above that, tiles of 8 rows and one block per
-    pair of tiles, so fewer column chunks.  A pure function of (K, n): the
-    summation order, and so the result, repeats from run to run."""
+def _pairs(K: int) -> int:
+    """Row-tile pairs a column chunk is cut into: 1 for K <= 16 (one tile of
+    K rows), else the pairs ti <= tj of ceil(K/8) tiles of 8 rows."""
     if K <= 16:
-        pairs = 1
-    else:
-        tiles = -(-K // 8)
-        pairs = tiles * (tiles + 1) // 2
-    nchunks = max(1, min(-(-n // (4 * THREADS)), MAX_BLOCKS // pairs))
-    chunk = -(-n // nchunks)
-    chunk = -(-chunk // 128) * 128
+        return 1
+    tiles = -(-K // 8)
+    return tiles * (tiles + 1) // 2
+
+
+@functools.lru_cache(maxsize=None)
+def plan(K: int, n: int) -> Tuple[int, int]:
+    """(chunk, nchunks): the kernel's split of the n columns into contiguous
+    chunks, one block per chunk and tile pair, at most :data:`MAX_BLOCKS`
+    blocks (one pair set of chunks when the pairs alone exceed it).  A chunk
+    is a whole number of :data:`STAGE_COLS`-column stages.  A pure function
+    of (K, n): the summation order, and so the result, repeats from run to
+    run."""
+    stages = -(-n // STAGE_COLS)
+    nchunks = max(1, min(stages, MAX_BLOCKS // _pairs(K)))
+    chunk = -(-stages // nchunks) * STAGE_COLS
     return chunk, -(-n // chunk)
 
 
-def _lib() -> ctypes.CDLL:
-    lib = load_library("gram")
-    if not getattr(lib, "_typed", False):
-        vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        lib.gram.argtypes = [vp, ll, i, ll, ll, i, vp, vp, vp]
-        lib.gram.restype = i
-        lib._typed = True
-    return lib
+#: floats of the cross-block workspace: the most that any plan needs,
+#: nchunks * K * K over every K the kernel takes
+WORK_FLOATS = max(max(1, MAX_BLOCKS // _pairs(K)) * K * K
+                  for K in range(1, MAX_K + 1))
+
+
+def vector_path(addr: int, lda: int, n: int) -> bool:
+    """Whether the kernel streams ``A`` with 16-byte copies: every row must
+    start 16-byte aligned (the base address ``addr`` and the row stride
+    ``lda``, in floats), and a row must hold one 16-byte vector.  Otherwise
+    4-byte copies into the same layout, with the same arithmetic."""
+    return addr % 16 == 0 and lda % 4 == 0 and n >= 4
+
+
+#: the launch path: (C function, raw stream of a device index, current
+#: device), bound at the first launch (``cuda_build``'s lean path)
+_gram_c = None
+#: per (device index, raw stream): the data pointers of the cross-block
+#: workspace and of its counter (zeroed once; the kernel leaves it 0), then
+#: the two tensors
+_WORKSPACE: Dict[Tuple[int, int], tuple] = {}
+_F32 = torch.float32
+
+
+def _bind():
+    global _gram_c
+    vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    _gram_c = (cuda_build.bind("gram", "gram",
+                               [vp, ll, i, ll, ll, i, i, vp, vp, vp, vp]),
+               *cuda_build.cuda_runtime())
+    return _gram_c
+
+
+def _workspace(idx: int, stream: int) -> tuple:
+    """The data pointers of the cross-block workspace and its zeroed
+    counter for (device, stream), allocated at the stream's first call and
+    kept (with the tensors) for the process."""
+    dev = torch.device("cuda", idx)
+    work = torch.empty(WORK_FLOATS, dtype=torch.float32, device=dev)
+    counter = torch.zeros(1, dtype=torch.int32, device=dev)
+    ws = _WORKSPACE[(idx, stream)] = (work.data_ptr(), counter.data_ptr(),
+                                      work, counter)
+    return ws
 
 
 def gram(a: torch.Tensor) -> torch.Tensor:
@@ -77,31 +127,37 @@ def gram(a: torch.Tensor) -> torch.Tensor:
     tensor, :func:`gram_plain` on a CPU tensor.  The columns must be
     contiguous (``a.stride(1) == 1``); the rows may be strided, so a
     column slab of a wider matrix is read in place."""
-    if a.device.type == "cpu":
-        return gram_plain(a)
-    if a.device.type != "cuda":
+    if not a.is_cuda:
+        if a.is_cpu:
+            return gram_plain(a)
         raise ValueError(f"gram takes a CUDA or a CPU tensor, got {a.device}")
-    if a.dtype != torch.float32 or a.dim() != 2:
+    fn, raw_stream, current_device = _gram_c or _bind()
+    shape = a.shape
+    if a.dtype != _F32 or len(shape) != 2:
         raise TypeError(f"gram takes a 2-D float32 tensor, got {a.dtype} "
-                        f"of shape {tuple(a.shape)}")
-    K, n = a.shape
+                        f"of shape {tuple(shape)}")
+    K, n = shape
     if not (1 <= K <= MAX_K and n >= 1):
         raise ValueError(f"gram takes 1 <= K <= {MAX_K} rows and n >= 1 "
                          f"columns; got K={K}, n={n}")
-    if a.stride(1) != 1 or (K > 1 and a.stride(0) < n):
+    lda, step = a.stride()
+    if step != 1 or (K > 1 and lda < n):
         raise ValueError("gram needs contiguous columns (stride(1) == 1) "
                          f"and non-overlapping rows; got strides {a.stride()}")
-    if a.device.index != torch.cuda.current_device():
+    idx = a.get_device()
+    if idx != current_device():
         raise ValueError(f"tensor lies on {a.device} but the current CUDA "
-                         f"device is cuda:{torch.cuda.current_device()}")
+                         f"device is cuda:{current_device()}")
     chunk, nchunks = plan(K, n)
-    lib = _lib()
-    g = torch.empty((K, K), dtype=torch.float32, device=a.device)
-    work = torch.empty(nchunks * K * K, dtype=torch.float32, device=a.device)
-    err = lib.gram(a.data_ptr(), a.stride(0), K, n, chunk, nchunks,
-                   work.data_ptr(), g.data_ptr(),
-                   torch.cuda.current_stream(a.device).cuda_stream)
-    if err != 0:
+    stream = raw_stream(idx)
+    ws = _WORKSPACE.get((idx, stream)) or _workspace(idx, stream)
+    ptr = a.data_ptr()
+    g = a.new_empty((K, K))
+    # one row: its stride does not matter to the alignment
+    err = fn(ptr, lda, K, n, chunk, nchunks,
+             vector_path(ptr, lda if K > 1 else 0, n), ws[0], ws[1],
+             g.data_ptr(), stream)
+    if err:
         raise RuntimeError(f"gram kernel launch failed: CUDA error {err}")
     LAUNCHES["gram"] += 1
     return g

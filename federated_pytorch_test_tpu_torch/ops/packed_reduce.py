@@ -16,7 +16,8 @@ the D per-device programs in index order, so the arithmetic is that of the
 JAX program at that D, hop by hop.  Every hop quantizes with
 :func:`~federated_pytorch_test_tpu_torch.ops.quant.quantize_chunks` (kernel
 B1) and accumulates with
-:func:`~federated_pytorch_test_tpu_torch.ops.quant.dequant_add` (kernel B2);
+:func:`~federated_pytorch_test_tpu_torch.ops.quant.dequant_add` (kernel B2)
+in place on the device's buffer;
 ``impl=quant.PLAIN`` runs the plain versions instead, for comparison.  The
 transport is deterministic round-to-nearest, so a fused round is
 replayable.  The sparse (top-k) fused mean is not ported.
@@ -73,12 +74,12 @@ def unpack_chunks(q: torch.Tensor, scale: torch.Tensor, chunk: int,
 
 
 def _hop_accumulate(acc: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
-                    chunk: int, bits: int,
-                    impl: QuantImpl = KERNELS) -> torch.Tensor:
-    """The hop's ``acc + decode(q, scale)`` as one dequantize-accumulate
-    launch (B2), on ``[c, chunk]`` rows."""
-    out = impl.dequant_add(acc.reshape(-1, chunk), _unfold_rows(q, bits), scale)
-    return out.reshape(-1)
+                    chunk: int, bits: int, impl: QuantImpl = KERNELS) -> None:
+    """The hop's ``acc += decode(q, scale)``, in place on ``acc`` (a
+    contiguous slice of a device's buffer) as one dequantize-accumulate
+    launch (B2) on ``[c, chunk]`` rows."""
+    rows = acc.view(-1, chunk)
+    impl.dequant_add(rows, _unfold_rows(q, bits), scale, out=rows)
 
 
 def _seg_elems(n: int, D: int, chunk: int) -> int:
@@ -109,8 +110,7 @@ def _butterfly_reduce_scatter(bufs: List[torch.Tensor], mesh: ClientMesh,
         for me in mesh.indices():
             k = keep[me]
             q, s = recv[me]
-            bufs[me][k: k + width] = _hop_accumulate(
-                bufs[me][k: k + width], q, s, chunk, bits, impl)
+            _hop_accumulate(bufs[me][k: k + width], q, s, chunk, bits, impl)
         lo = keep
         half //= 2
     return lo
@@ -133,8 +133,7 @@ def _ring_reduce_scatter(bufs: List[torch.Tensor], mesh: ClientMesh, seg: int,
         for me in mesh.indices():
             r = ((me - 1 - t) % D) * seg
             q, s = recv[me]
-            bufs[me][r: r + seg] = _hop_accumulate(bufs[me][r: r + seg], q, s,
-                                                   chunk, bits, impl)
+            _hop_accumulate(bufs[me][r: r + seg], q, s, chunk, bits, impl)
     return [((me + 1) % D) * seg for me in mesh.indices()]
 
 

@@ -20,6 +20,11 @@ both sides).  Tolerances:
 - Port vs the dense mean: within ``(log2 D + 1)`` grid steps of the dense
   mean's chunk (PARITY.md), for the ring too.  Measured: at most 0.94
   steps at D = 2, 1.63 at D = 8, 1.95 at D = 6.
+
+The reduce-scatter's hops accumulate in place: every accumulate writes
+into the device's own buffer (``out`` is ``acc``, a slice of it), the
+buffers keep their storage, and the result is bit for bit that of an
+accumulate into a new tensor copied back.
 """
 
 import math
@@ -183,3 +188,42 @@ def test_mesh_ppermute_and_gathers():
     assert mesh.all_gather(parts).shape == (6,)
     assert mesh.all_gather(parts, tiled=False).shape == (3, 2)
     assert list(mesh.indices()) == [0, 1, 2]
+
+
+@pytest.mark.parametrize("D", [2, 5])
+def test_hops_accumulate_in_place_on_the_buffers(D):
+    """Butterfly (D = 2) and ring (D = 5) reduce-scatter: each hop's
+    accumulate writes into ``bufs`` itself, whose storage does not move,
+    with the values of an out-of-place accumulate copied back."""
+    K, chunk, bits = 2 * D, 64, 8
+    stack = torch.from_numpy(np.random.default_rng(D).normal(
+        size=(K, N)).astype(np.float32))
+    mesh = ClientMesh(D)
+    seg = tpr._seg_elems(N, D, chunk)
+    local = [s.sum(dim=0) for s in mesh.shards(stack)]
+    bufs = [torch.nn.functional.pad(x, (0, D * seg - N)) for x in local]
+    ref = [b.clone() for b in bufs]
+    spans = [(b.data_ptr(), b.data_ptr() + b.numel() * 4) for b in bufs]
+    seen = []
+
+    def in_place(acc, q, scale, out=None):
+        assert out is acc
+        seen.append(any(lo <= out.data_ptr() < hi for lo, hi in spans))
+        return quant.dequant_add_plain(acc, q, scale, out)
+
+    def copied_back(acc, q, scale, out=None):
+        out.copy_(quant.dequant_add_plain(acc, q, scale))
+        return out
+
+    run = (tpr._butterfly_reduce_scatter if D & (D - 1) == 0
+           else tpr._ring_reduce_scatter)
+    lo = run(bufs, mesh, seg, chunk, bits,
+             quant.QuantImpl(quant.quantize_plain, in_place))
+    lo_ref = run(ref, mesh, seg, chunk, bits,
+                 quant.QuantImpl(quant.quantize_plain, copied_back))
+    hops = 1 if D == 2 else D - 1
+    assert seen == [True] * (D * hops)
+    assert [b.data_ptr() for b in bufs] == [lo for lo, _ in spans]
+    assert lo == lo_ref
+    for b, r in zip(bufs, ref):
+        assert torch.equal(b, r)

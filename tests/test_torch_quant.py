@@ -16,6 +16,10 @@
   ``acc + q * safe`` into a fused multiply-add there (about a quarter of
   the outputs differ from the two roundings; where acc and the product
   cancel, the product's rounding sets the difference).
+- B2's ``out``: into a given tensor and in place (``out=acc``) equal to
+  out of place bit for bit, also against ``_dequant_add_xla`` eagerly; an
+  ``out`` of the wrong shape, dtype, device or layout, or one that
+  overlaps ``acc`` without being it, raises.
 - The wrappers: a CPU tensor takes the plain version and adds no launch; a
   tensor on another device raises.
 """
@@ -125,6 +129,60 @@ def test_dequant_add_plain_within_an_ulp_of_pallas_interpret(c, w):
     np.testing.assert_array_equal(passthru, acc)
 
 
+def _b2_inputs(c, w, seed):
+    rng = np.random.default_rng(seed)
+    acc = rng.normal(size=(c, w)).astype(np.float32)
+    q = rng.integers(-127, 128, size=(c, w)).astype(np.int8)
+    scale = np.abs(rng.normal(size=c)).astype(np.float32) / 127
+    scale[0] = 0.0
+    return acc, q, scale
+
+
+@pytest.mark.parametrize("fn", [quant.dequant_add, quant.dequant_add_plain])
+@pytest.mark.parametrize("c,w", [(5, 2), (3, 130), (70, 256)])
+def test_dequant_add_out_and_in_place_equal_out_of_place(fn, c, w):
+    acc, q, scale = (torch.from_numpy(x) for x in _b2_inputs(c, w, c + w))
+    want = fn(acc, q, scale)
+    out = torch.full_like(acc, float("nan"))
+    assert fn(acc, q, scale, out=out) is out
+    assert torch.equal(out, want)
+    inplace = acc.clone()
+    ptr = inplace.data_ptr()
+    assert fn(inplace, q, scale, out=inplace) is inplace
+    assert inplace.data_ptr() == ptr and torch.equal(inplace, want)
+    # out=acc through another view of the same memory
+    view = acc.clone()
+    fn(view, q, scale, out=view.view(c, w))
+    assert torch.equal(view, want)
+
+
+def test_dequant_add_in_place_matches_xla_eagerly():
+    acc, q, scale = _b2_inputs(70, 256, 11)
+    want = np.asarray(_dequant_add_xla(jnp.asarray(acc), jnp.asarray(q),
+                                       jnp.asarray(scale)))
+    got = torch.from_numpy(acc.copy())
+    quant.dequant_add_plain(got, torch.from_numpy(q), torch.from_numpy(scale),
+                            out=got)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("fn", [quant.dequant_add, quant.dequant_add_plain])
+def test_dequant_add_refuses_a_wrong_out(fn):
+    acc, q, scale = (torch.from_numpy(x) for x in _b2_inputs(8, 64, 2))
+    with pytest.raises(ValueError, match="shape"):
+        fn(acc, q, scale, out=torch.empty(8, 32))
+    with pytest.raises(TypeError, match="float32"):
+        fn(acc, q, scale, out=torch.empty(8, 64, dtype=torch.float64))
+    with pytest.raises(ValueError, match="contiguous"):
+        fn(acc, q, scale, out=torch.empty(64, 8).t())
+    with pytest.raises(ValueError):
+        fn(acc, q, scale, out=torch.empty(8, 64, device="meta"))
+    wide = torch.zeros(9 * 64)
+    shifted = wide[:8 * 64].view(8, 64)
+    with pytest.raises(ValueError, match="overlaps"):
+        fn(shifted, q, scale, out=wide[64:].view(8, 64))
+
+
 @pytest.mark.parametrize("qmax", [127, 7])
 def test_quantize_wrapper_takes_the_plain_version_on_the_cpu(qmax):
     v = torch.from_numpy(_rows(33, 64, seed=5))
@@ -135,6 +193,7 @@ def test_quantize_wrapper_takes_the_plain_version_on_the_cpu(qmax):
     acc = torch.randn(33, 64, generator=torch.Generator().manual_seed(0))
     assert torch.equal(quant.dequant_add(acc, q, s),
                        quant.dequant_add_plain(acc, q, s))
+    quant.dequant_add(acc, q, s, out=acc)
     assert quant.LAUNCHES == before
 
 

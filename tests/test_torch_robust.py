@@ -96,6 +96,37 @@ def test_gram_plan_covers_columns(K, n):
     tiles = -(-K // 8)
     pairs = 1 if K <= 16 else tiles * (tiles + 1) // 2
     assert nchunks * pairs <= max(tgram.MAX_BLOCKS, pairs)
+    assert chunk % tgram.STAGE_COLS == 0
+
+
+def test_gram_plan_is_a_pure_function_of_K_and_n():
+    """The split, and so the order of the sums, depends on (K, n) alone:
+    the same after other calls, and the same as computed afresh."""
+    shapes = [(10, 928), (10, 2_360_320), (17, 60_000), (128, 4096), (3, 1)]
+    first = [tgram.plan(K, n) for K, n in shapes]
+    fresh = [tgram.plan.__wrapped__(K, n) for K, n in shapes]
+    again = [tgram.plan(K, n) for K, n in reversed(shapes)][::-1]
+    assert first == fresh == again
+    # the path's two shards: the stem is one chunk (G written directly),
+    # the largest shard one chunk of 18 stages on each of 129 SMs
+    assert tgram.plan(10, 928) == (1024, 1)
+    assert tgram.plan(10, 2_360_320) == (18 * 1024, 129)
+    # the workspace holds the partials of every plan
+    for K in range(1, tgram.MAX_K + 1):
+        _, nchunks = tgram.plan(K, 10 ** 7)
+        assert nchunks * K * K <= tgram.WORK_FLOATS
+
+
+@pytest.mark.parametrize("addr,lda,n,vec", [
+    (0x7F0000000000, 928, 928, True),            # a whole aligned matrix
+    (0x7F0000000000 + 12, 936, 928, False),      # w[:, 3:3+n]: base off 16 B
+    (0x7F0000000000, 1001, 1000, False),         # lda % 4 != 0
+    (0x7F0000000000 + 16, 100_012, 100_003, True),  # aligned slab, lda % 4 == 0
+    (0x7F0000000000, 0, 2_360_320, True),        # one row: no stride
+    (0x7F0000000000, 4, 3, False),               # a row under one vector
+])
+def test_gram_vector_path_choice(addr, lda, n, vec):
+    assert tgram.vector_path(addr, lda, n) is vec
 
 
 # ---------------------------------------------------------------------------
