@@ -12,13 +12,22 @@ which stops the script with a non-zero exit if it fails:
    ptxas reports on one line each, the build seconds);
 3. InfoNCE kernels vs plain: the forward and backward kernels against
    their plain PyTorch versions at the CPC path's shape (D=4096, P=9), at
-   D=8/P=1, D=4099/P=130, D=256/P=1000 and with an all-zero column in Z
-   and in Zhat; then, at the path's shape, the time per call of kernel
-   and plain version from CUDA events around 200 back-to-back calls
-   (``ms``, host launch cost included), the kernels' device time from
-   ``torch.profiler`` (``device_ms``), the host-only time per call
+   D=8/P=1, D=4099/P=130, D=256/P=1000, with an all-zero column in Z and
+   in Zhat, on each side of ``plan``'s threshold (P=32 takes the cluster
+   branch, P=33 the rows branch), at D=100,003/P=9 (a block's rows in
+   tiles) and at D=20,000/P=4 and D=10,000/P=13 (a backward tile of more
+   rows than a block's threads form at once), each case printed with its
+   branch; at the path's shape three runs of both kernels equal bit for
+   bit; then, at the path's shape, the time per call of kernel and plain
+   version from CUDA events around 200 back-to-back calls (``ms``, host
+   launch cost included), the kernels' device time from ``torch.profiler``
+   (``device_ms``), the device kernels a call from a CUDA graph capture
+   of one call (``device_kernels``, which must be 1; every profiler window
+   is logged with the records it lost), the host-only time per call
    (``host_ms``: ``time.perf_counter`` around the calls, read before the
-   device is synchronised), and the card's bound;
+   device is synchronised), the card's bound, and the device time of the
+   same calls on the rows branch, the first design's kernels
+   (``rows_branch_device_ms``);
 4. Gram kernel vs plain: ``gram`` against ``gram_plain`` at [10, 928] (the
    ResNet18 stem block's shard), [10, 2,360,320] (the largest block's
    shard), [1, 1], [3, 513], [16, 100,003], [128, 4,096], K = 17 and 33
@@ -32,7 +41,8 @@ which stops the script with a non-zero exit if it fails:
    largest shard and at the stem: the time per call of the kernel and of
    ``torch.matmul(a, a.T)`` (TF32 off; the library yardstick), taken in
    turns, the plain version's, the kernel's device time, the host-only
-   time per call, the device kernels per call (1) and the bound;
+   time per call, the device kernels per call (1, from a graph capture)
+   and the bound;
 5. slice 1 at full width: ``drivers.federated_cpc`` with its defaults
    (K=4, Lc=256, Rc=32, batch 128, patch 32, Niter=10, Nloop=1, Nadmm=1:
    one rotation of 4 communication rounds; nothing cut), with the InfoNCE
@@ -124,6 +134,16 @@ FWD_RTOL, FWD_ATOL = 1e-5, 1e-5
 #: Gradients are sums of P products of scores, so a few ulps of the largest
 #: element is the scale of the rounding difference.
 BWD_RTOL, BWD_ATOL_REL = 1e-4, 1e-5
+#: phase 3's InfoNCE cases (D, P, zero columns): the CPC path's shape, a
+#: single column, the rows branch at P = 130 and 1,000, a zero column in Z
+#: and in Zhat, the last P of the cluster branch and the first of the rows
+#: branch (ops/infonce.py plan), a D whose block rows go in tiles, and two
+#: whose backward tiles (1,252 rows of P = 4, 628 of P = 13) hold more rows
+#: than a block's 512 threads form at once
+INFONCE_CASES = ((4096, 9, False), (8, 1, False), (4099, 130, False),
+                 (256, 1000, False), (4096, 9, True), (4096, 32, False),
+                 (4096, 33, False), (100_003, 9, False), (20_000, 4, False),
+                 (10_000, 13, False))
 #: the CPC loss through kernels vs plain versions, and its gradient
 LOSS_RTOL = 1e-5
 GRAD_RTOL, GRAD_ATOL_REL = 1e-4, 1e-5
@@ -242,23 +262,69 @@ def host_time_ms(fn, iters: int = 200, warmup: int = 20) -> float:
     return (t1 - t0) * 1e3 / iters
 
 
-def profiled(fn, name: str, iters: int = 50) -> tuple:
+def kernels_a_call(fn) -> int:
+    """Kernels that one call of ``fn`` launches, counted in a CUDA graph
+    capture of the call: exact, where the profiler can lose records.  The
+    first capture is a warm-up (a wrapper may set up state for the capture
+    stream); nothing captured runs."""
+    import ctypes
+
+    import torch
+
+    cuda = ctypes.CDLL("libcuda.so.1")
+    for _ in range(2):
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        with torch.cuda.graph(graph):
+            fn()
+    handle, n = ctypes.c_void_p(graph.raw_cuda_graph()), ctypes.c_size_t(0)
+    if cuda.cuGraphGetNodes(handle, None, ctypes.byref(n)):
+        fail("cuGraphGetNodes failed on a captured call")
+    nodes = (ctypes.c_void_p * n.value)()
+    cuda.cuGraphGetNodes(handle, nodes, ctypes.byref(n))
+    kinds = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        cuda.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind))
+        kinds.append(kind.value)
+    graph.reset()
+    return sum(k == 0 for k in kinds)       # CU_GRAPH_NODE_TYPE_KERNEL
+
+
+def profiled(fn, name: str, iters: int = 50, tries: int = 3) -> tuple:
     """(device time per call (ms) of the CUDA kernels whose name contains
-    ``name``, or None if the profiler saw none; device kernels of any name
-    per call), from ``torch.profiler``."""
+    ``name``, or None if the profiler saw none; device kernels per call,
+    from :func:`kernels_a_call`), the time from ``torch.profiler``.  Every
+    window is logged.  A window in which the profiler recorded none of the
+    named kernels is taken again, up to ``tries`` windows.  In a long
+    process the profiler can lose kernel records (on the H100, 43 of 50
+    launches of a wrapper that launches one kernel a call, every call); a
+    window that recorded fewer kernels than the capture's count times the
+    calls is logged as such, and its time scaled by the share recorded."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    per_call = kernels_a_call(fn)
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    ev = [e for e in prof.key_averages() if e.self_device_time_total > 0]
-    us = sum(e.self_device_time_total for e in ev if name in e.key)
-    return (us / iters / 1e3 if us > 0 else None,
-            sum(e.count for e in ev) / iters)
+    for t in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        ev = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+        us = sum(e.self_device_time_total for e in ev if name in e.key)
+        count = sum(e.count for e in ev if name in e.key)
+        total = sum(e.count for e in ev)
+        lost = per_call * iters - total
+        log(f"profile {name!r} window {t + 1}: {count} named and {total} "
+            f"device kernels recorded in {iters} calls of {per_call} "
+            f"kernels each, {us:.3f} us named"
+            + (f"; the profiler lost {lost} records" if lost else ""))
+        if count:
+            break
+    if us and lost > 0:
+        us *= per_call * iters / total
+    return (us / iters / 1e3 if us > 0 else None, per_call)
 
 
 def profiled_device_ms(fn, name: str, iters: int = 50):
@@ -327,7 +393,8 @@ def build() -> None:
 def check_kernels(dev, card: str):
     """Phase 3; returns ({kernel: max_abs_err at the path's shape},
     {kernel: (kernel_ms, plain_ms, (bound_ms, bound_by))},
-    {kernel: device_ms}, {kernel: {"host_ms": host-only ms a call}})."""
+    {kernel: device_ms}, {kernel: {"host_ms": host-only ms a call,
+    "device_kernels": device kernels a call}})."""
     import torch
 
     from federated_pytorch_test_tpu_torch.ops import infonce
@@ -346,8 +413,7 @@ def check_kernels(dev, card: str):
                 torch.from_numpy(g).to(dev))
 
     path_err = {}
-    for D, P, zero in ((4096, 9, False), (8, 1, False), (4099, 130, False),
-                       (256, 1000, False), (4096, 9, True)):
+    for D, P, zero in INFONCE_CASES:
         Z, Zh, ghat = case(D, P, zero)
         lp_k = infonce.infonce_fwd(Z, Zh)
         lp_p = log_p_flat(Z, Zh)
@@ -358,7 +424,8 @@ def check_kernels(dev, card: str):
         scale = float(torch.maximum(dz_p.abs().max(), dzh_p.abs().max()))
         eb1, okb1 = within(dz_k, dz_p, BWD_RTOL, BWD_ATOL_REL * scale)
         eb2, okb2 = within(dzh_k, dzh_p, BWD_RTOL, BWD_ATOL_REL * scale)
-        log(f"kernel check D={D} P={P} zero_cols={zero}: fwd max_abs_err={ef:.3e} "
+        log(f"kernel check D={D} P={P} zero_cols={zero} "
+            f"branch={infonce.plan(D, P).branch}: fwd max_abs_err={ef:.3e} "
             f"bwd max_abs_err dZ={eb1:.3e} dZhat={eb2:.3e} (grad scale {scale:.3e})")
         if not (okf and okb1 and okb2):
             fail(f"kernel disagrees with its plain version at D={D} P={P} "
@@ -372,6 +439,12 @@ def check_kernels(dev, card: str):
     D, P = 4096, 9
     Z, Zh, ghat = case(D, P)
     lp = log_p_flat(Z, Zh)
+    runs = [(infonce.infonce_fwd(Z, Zh), *infonce.infonce_bwd(Z, Zh, lp, ghat))
+            for _ in range(3)]
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for run in runs[1:] for a, b in zip(runs[0], run)):
+        fail("InfoNCE kernels do not repeat bit for bit at D=4096 P=9")
+    log("kernel check D=4096 P=9: log_p, dZ and dZhat equal bit for bit over 3 runs")
     timing = {
         "infonce_fwd": (cuda_time_ms(lambda: infonce.infonce_fwd(Z, Zh)),
                         cuda_time_ms(lambda: log_p_flat(Z, Zh)),
@@ -380,20 +453,26 @@ def check_kernels(dev, card: str):
                         cuda_time_ms(lambda: infonce.grads_plain(Z, Zh, lp, ghat)),
                         bound_ms(*bwd_bound(D, P))),
     }
-    device = {
-        "infonce_fwd": profiled_device_ms(lambda: infonce.infonce_fwd(Z, Zh),
-                                          "infonce_fwd_kernel"),
-        "infonce_bwd": profiled_device_ms(
-            lambda: infonce.infonce_bwd(Z, Zh, lp, ghat), "infonce_bwd_"),
-    }
-    extra = {
-        "infonce_fwd": {"host_ms": host_time_ms(
-            lambda: infonce.infonce_fwd(Z, Zh))},
-        "infonce_bwd": {"host_ms": host_time_ms(
-            lambda: infonce.infonce_bwd(Z, Zh, lp, ghat))},
-    }
+    calls = {"infonce_fwd": (lambda: infonce.infonce_fwd(Z, Zh), "infonce_fwd"),
+             "infonce_bwd": (lambda: infonce.infonce_bwd(Z, Zh, lp, ghat),
+                             "infonce_bwd_")}
+    prof = {k: profiled(fn, key) for k, (fn, key) in calls.items()}
+    device = {k: v[0] for k, v in prof.items()}
+    extra = {k: {"host_ms": host_time_ms(fn), "device_kernels": prof[k][1]}
+             for k, (fn, _) in calls.items()}
+    for k, (_, per_call) in prof.items():
+        if per_call != 1:
+            fail(f"{k} at D={D} P={P} ran {per_call} device kernels a call; "
+                 f"expected 1")
+    # the same calls on the rows branch (the first design's kernels)
+    rows = {"infonce_fwd": lambda: infonce.infonce_fwd(Z, Zh, branch="rows"),
+            "infonce_bwd": lambda: infonce.infonce_bwd(Z, Zh, lp, ghat,
+                                                       branch="rows")}
+    for k, fn in rows.items():
+        extra[k]["rows_branch_device_ms"] = profiled(fn, calls[k][1])[0]
     for name, (k_ms, p_ms, (b_ms, b_by)) in timing.items():
-        log(json.dumps({"kernel": name, "D": D, "P": P, "kernel_ms": k_ms,
+        log(json.dumps({"kernel": name, "D": D, "P": P,
+                        "branch": infonce.plan(D, P).branch, "kernel_ms": k_ms,
                         "device_ms": device[name], **extra[name],
                         "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
                         "library_ms": None, "card": card}))
