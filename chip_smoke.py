@@ -102,7 +102,46 @@ which stops the script with a non-zero exit if it fails:
     both within ``(log2 D + 1)`` grid steps of the dense mean;
 14. a profile of one comm step (encode, fused mean with the hops
     accumulating in place, ADMM update) at the largest block (printed
-    only).
+    only);
+15. slice 4 at full width: ``drivers.federated_multi`` (FedAvg, ResNet18,
+    K=10, batch 128, float32, Adam lr 1e-3, biased_input) with
+    ``--compress topk --topk-frac 0.1 --error-feedback --fused-collective
+    --num-devices 2`` (the sparse fused mean) and slice 2's cuts (Nloop
+    12 -> 1, Nadmm 3 -> 2: 20 rounds; 1,280 training images per client,
+    1,000 test images, synthetic CIFAR-10).  topk_frac is 0.1, not the
+    default 0.01: at 1% the stem block ships only BatchNorm parameters,
+    FedAvg's write-back zeroes the stem convolution and the next backward
+    pass is NaN, in the JAX package as in the port.  Every round's loss and
+    dual residual finite, every block changed, every client holding z in
+    the active block after every round, ``bytes_on_wire`` = K*8k and
+    ``bytes_fused`` = (D-1)*K*8k at every N (37,765,120 twice at the
+    largest block).  Then, on the largest block's first comm round, at
+    the run's k and at the 1% k from the same EF input: the selection on
+    the card equal to the CPU's and to a numpy stable sort (indices and
+    order), also on a row built with 100 ties at the k-th magnitude; the
+    sparse fused mean three times bit for bit, bit for bit the CPU's, and
+    within ``TOPK_MEAN_REL`` of the float64 dense mean of the
+    reconstructions; the byte models at both k (3,776,480 twice at 1%);
+    the selection, encode and sparse-mean times;
+16. ``drivers.no_consensus_multi`` on ResNet18 (the whole net trains, Adam
+    afresh every epoch), Nepoch 20 -> 2 with the data cuts of phase 15:
+    both epochs finite, every parameter tensor changed, Adam's step count
+    restarting at 1 in every epoch; the epoch times and the peak device
+    memory;
+17. ``drivers.fedprox_multi`` on ResNet18, Nloop 12 -> 1, Nadmm 5 -> 1 (10
+    rounds), the data cuts: finite, every block changed, z never written
+    back;
+18. ``drivers.federated_multi --model net --optimizer lbfgs``, Nloop 12 ->
+    1, Nadmm 3 -> 1 (5 rounds), the data cuts: finite, every block
+    changed, the closure evaluations of every L-BFGS step counted;
+19. ``drivers.accuracy_comparison.run_comparison`` at its defaults (K=10,
+    Nloop 3, Nadmm 3, batch 64, 1,024 images a client, 2,048 test images,
+    the synthetic multi-prototype data): the four final accuracies, every
+    curve finite and not empty.
+
+Phases 15-19 run no hand-written kernel (top-k, the scatter-add and the
+L-BFGS update are stock PyTorch, as in the JAX package they are XLA), so
+the kernel line is that of phases 3-14.
 
 The line before the last is the per-kernel JSON record (with each
 kernel's host-only time, and B3's stem and B2's in-place fields); the last
@@ -187,6 +226,39 @@ SLICE3_ARGV = ["--device", "cuda", "--model", "resnet18", "--compress", "q8",
 #: compress/quantize.py): what the records must carry
 LARGEST_BYTES_FUSED = 9_588_800
 LARGEST_BYTES_ON_WIRE = 47_944_000
+#: slice 4 as chip_smoke drives it: FedAvg on ResNet18 with top-k and error
+#: feedback over the sparse fused collective, slice 2's cuts
+#: (federated_multi's Nadmm 3 -> 2: 20 rounds).  topk_frac 0.1, not the
+#: default 0.01: at 1% the stem block's k = 19 coordinates are all
+#: BatchNorm parameters, FedAvg's write-back of z (zeros at the block's
+#: start, plus the sparse mean) then zeroes the stem convolution, and the
+#: next backward pass is NaN, in the JAX package as in the port
+SLICE4_ARGV = ["--device", "cuda", "--model", "resnet18", "--compress", "topk",
+               "--topk-frac", "0.1", "--error-feedback", "--fused-collective",
+               "--num-devices", "2", "--Nloop", "1", "--Nadmm", "2",
+               "--n-train", "1280", "--n-test", "1000"]
+#: top-k at the largest block, for the run's frac and the default 1%:
+#: (k = round(frac * 4,720,640), bytes_on_wire K * 8k, bytes_fused
+#: (D-1) * K * 8k at D = 2)
+TOPK_FRACS = (0.1, 0.01)
+TOPK_LARGEST = {0.1: (472_064, 37_765_120, 37_765_120),
+                0.01: (47_206, 3_776_480, 3_776_480)}
+#: the sparse fused mean vs the float64 dense mean of the reconstructions:
+#: |got - ref| <= TOPK_MEAN_REL * max |ref| (float32 sums of 10 clients)
+TOPK_MEAN_REL = 1e-6
+#: the no-consensus baseline on ResNet18: Nepoch 20 -> 2, the data cuts
+NO_CONSENSUS_EPOCHS = 2
+NO_CONSENSUS_ARGV = ["--device", "cuda", "--model", "resnet18", "--Nepoch",
+                     str(NO_CONSENSUS_EPOCHS), "--n-train", "1280",
+                     "--n-test", "1000"]
+#: FedProx on ResNet18: Nloop 12 -> 1, Nadmm 5 -> 1 (10 rounds), the data cuts
+FEDPROX_ARGV = ["--device", "cuda", "--model", "resnet18", "--Nloop", "1",
+                "--Nadmm", "1", "--n-train", "1280", "--n-test", "1000"]
+#: FedAvg with L-BFGS on Net: Nloop 12 -> 1, Nadmm 3 -> 1 (5 rounds), the
+#: data cuts
+LBFGS_ARGV = ["--device", "cuda", "--model", "net", "--optimizer", "lbfgs",
+              "--Nloop", "1", "--Nadmm", "1", "--n-train", "1280",
+              "--n-test", "1000"]
 #: the Pallas sites B1 and B2 replace
 QUANTIZE_SITE = "federated_pytorch_test_tpu/ops/comm_kernels.py:124"
 DEQUANT_SITE = "federated_pytorch_test_tpu/ops/comm_kernels.py:182"
@@ -714,7 +786,6 @@ def run_slice2(dev):
     from federated_pytorch_test_tpu_torch.drivers import consensus_multi
     from federated_pytorch_test_tpu_torch.ops import gram
     from federated_pytorch_test_tpu_torch.parallel import comm
-    from federated_pytorch_test_tpu_torch.utils import codec
 
     captured = {}
     chunked = comm.robust_federated_mean_chunked
@@ -754,12 +825,9 @@ def run_slice2(dev):
             fail(f"the Gram kernel was not launched in round {rec}")
     if launches < len(history):
         fail(f"gram launched {launches} times over {len(history)} rounds")
-    for ci in range(trainer.L):
-        mask = trainer.mask_for_block(ci)
-        before = codec.get_trainable_stack(trainer.params0, trainer.order, mask)
-        after = codec.get_trainable_stack(state.params, trainer.order, mask)
-        if torch.equal(before, after):
-            fail(f"block {ci} did not change")
+    same = blocks_unchanged(trainer, state)
+    if same:
+        fail(f"blocks {same} did not change")
     if "stack" not in captured:
         fail("the largest block's comm round was not reached")
     return launches, captured["stack"], trainer, state
@@ -1072,7 +1140,6 @@ def run_slice3(dev):
         fused_bytes_on_wire,
     )
     from federated_pytorch_test_tpu_torch.train import engine
-    from federated_pytorch_test_tpu_torch.utils import codec
 
     captured = {}
     make = engine.make_fused_mean
@@ -1130,12 +1197,9 @@ def run_slice3(dev):
             fail(f"the largest block's bytes {rec['bytes_fused']}, "
                  f"{rec['bytes_on_wire']} are not {LARGEST_BYTES_FUSED}, "
                  f"{LARGEST_BYTES_ON_WIRE}")
-    for ci in range(trainer.L):
-        mask = trainer.mask_for_block(ci)
-        before = codec.get_trainable_stack(trainer.params0, trainer.order, mask)
-        after = codec.get_trainable_stack(state.params, trainer.order, mask)
-        if torch.equal(before, after):
-            fail(f"block {ci} did not change")
+    same = blocks_unchanged(trainer, state)
+    if same:
+        fail(f"blocks {same} did not change")
     if "stack" not in captured:
         fail("the largest block's comm round was not reached")
     return launches, captured["stack"], trainer, state
@@ -1251,6 +1315,386 @@ def profile_comm_step(trainer, state) -> None:
                         for e in top]}))
 
 
+def blocks_unchanged(trainer, state) -> list:
+    """The blocks of ``trainer`` whose parameters in ``state`` equal the
+    common init."""
+    import torch
+
+    from federated_pytorch_test_tpu_torch.utils import codec
+
+    same = []
+    for ci in range(trainer.L):
+        mask = trainer.mask_for_block(ci)
+        before = codec.get_trainable_stack(trainer.params0, trainer.order, mask)
+        after = codec.get_trainable_stack(state.params, trainer.order, mask)
+        if torch.equal(before, after):
+            same.append(ci)
+    return same
+
+
+def recording_comm_rounds():
+    """Context that wraps the engine's ``comm_round`` to keep, per round,
+    (block, params before, params after, z after): references only, no
+    device work inside the timed round; checked after the run."""
+    import contextlib
+
+    from federated_pytorch_test_tpu_torch.train import engine
+
+    rounds = []
+    orig = engine.BlockwiseFederatedTrainer.comm_round
+
+    def comm_round(self, state, ci, *args, **kw):
+        out = orig(self, state, ci, *args, **kw)
+        rounds.append((ci, state.params, out[0].params, out[1]))
+        return out
+
+    @contextlib.contextmanager
+    def ctx():
+        engine.BlockwiseFederatedTrainer.comm_round = comm_round
+        try:
+            yield rounds
+        finally:
+            engine.BlockwiseFederatedTrainer.comm_round = orig
+
+    return ctx()
+
+
+def stable_order_numpy(v: np.ndarray, k: int) -> np.ndarray:
+    """The plain reference of the top-|v| selection: numpy's stable sort
+    of -|v| (ties keep index order), first k."""
+    return np.argsort(-np.abs(v), kind="stable")[:k].astype(np.int32)
+
+
+def run_slice4(dev):
+    """Phase 15; returns (the captured top-k input, payload and z of the
+    largest block's first comm round, the trainer)."""
+    import torch
+
+    from federated_pytorch_test_tpu_torch.compress import topk
+    from federated_pytorch_test_tpu_torch.drivers import federated_multi
+    from federated_pytorch_test_tpu_torch.ops.packed_reduce import (
+        fused_bytes_on_wire,
+    )
+    from federated_pytorch_test_tpu_torch.train import engine
+    from federated_pytorch_test_tpu_torch.utils import codec
+
+    captured = {}
+    select, make = topk.top_k_abs_indices, engine.make_sparse_fused_mean
+
+    def capturing_select(vecs, k):
+        if vecs.shape[-1] == LARGEST_BLOCK_N and "u" not in captured:
+            captured["u"] = vecs.detach().clone()
+        return select(vecs, k)
+
+    def capturing_make(payload, z, K, mesh):
+        if z.shape[0] == LARGEST_BLOCK_N and "payload" not in captured:
+            captured["payload"] = {k: v.clone() for k, v in payload.items()}
+            captured["z"] = z.clone()
+        return make(payload, z, K, mesh)
+
+    topk.top_k_abs_indices = capturing_select
+    engine.make_sparse_fused_mean = capturing_make
+    try:
+        torch.cuda.reset_peak_memory_stats(dev)
+        with recording_comm_rounds() as rounds:
+            t0 = time.perf_counter()
+            trainer, state, history = federated_multi.main(SLICE4_ARGV,
+                                                           log=log)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        topk.top_k_abs_indices = select
+        engine.make_sparse_fused_mean = make
+    log(f"slice 4 (topk): {len(history)} rounds in {wall:.2f} s, "
+        f"max_memory_allocated {torch.cuda.max_memory_allocated(dev)} B")
+    K, D, comp = trainer.cfg.K, trainer.D, trainer.compressor
+    for rec in history:
+        log(json.dumps({k: rec[k] for k in (
+            "block", "nadmm", "N", "loss", "dual_residual", "round_seconds",
+            "stage_seconds", "train_seconds", "comm_seconds",
+            "bytes_on_wire", "bytes_fused")}))
+    if len(history) != SLICE2_ROUNDS or len(rounds) != SLICE2_ROUNDS:
+        fail(f"expected {SLICE2_ROUNDS} rounds, got {len(history)}")
+    if comp.name != "topk+ef" or not trainer._fused_coll:
+        fail(f"slice 4 ran {comp.name} with fused={trainer._fused_coll}")
+    for rec in history:
+        if not all(np.isfinite(rec[k]) for k in ("loss", "dual_residual")):
+            fail(f"non-finite loss or residual: {rec}")
+        N, k = rec["N"], comp.inner.k_for(rec["N"])
+        if (rec["bytes_on_wire"], rec["bytes_fused"]) != (
+                K * 8 * k, (D - 1) * K * 8 * k) or \
+                rec["bytes_fused"] != fused_bytes_on_wire(comp, N, D, K):
+            fail(f"bytes {rec['bytes_on_wire']}, {rec['bytes_fused']} are "
+                 f"not K*8k, (D-1)*K*8k with k={k} at N={N}")
+        if N == LARGEST_BLOCK_N and (k, rec["bytes_on_wire"],
+                                     rec["bytes_fused"]) != \
+                TOPK_LARGEST[comp.inner.frac]:
+            fail(f"the largest block's k and bytes {k}, "
+                 f"{rec['bytes_on_wire']}, {rec['bytes_fused']} are not "
+                 f"{TOPK_LARGEST[comp.inner.frac]}")
+    for ci, _, after, z in rounds:
+        x = codec.get_trainable_stack(after, trainer.order,
+                                      trainer.mask_for_block(ci))
+        if not torch.equal(x, z.unsqueeze(0).expand_as(x)):
+            fail(f"after a round of block {ci} not every client holds z")
+    same = blocks_unchanged(trainer, state)
+    if same:
+        fail(f"blocks {same} did not change")
+    if "payload" not in captured or "u" not in captured:
+        fail("the largest block's comm round was not reached")
+    return captured, trainer
+
+
+def check_topk_path_data(captured, trainer) -> None:
+    """Phase 15, on the largest block's captured round, at the run's k and
+    at the 1% k (``TOPK_FRACS``), both from the round's EF input: the
+    top-k selection on the card against the CPU and a numpy stable sort
+    (and on a row built with 100 ties at the k-th magnitude); the sparse
+    fused mean three times bit for bit, against the CPU bit for bit, and
+    against the float64 dense mean of the reconstructions; each timed."""
+    import torch
+
+    from federated_pytorch_test_tpu_torch.compress.topk import TopK
+    from federated_pytorch_test_tpu_torch.ops.packed_reduce import (
+        fused_bytes_on_wire,
+        make_sparse_fused_mean,
+    )
+    from federated_pytorch_test_tpu_torch.ops.topk_select import (
+        top_k_abs_indices,
+    )
+
+    u, z, mesh = captured["u"], captured["z"], trainer.mesh
+    K, n = u.shape
+    for frac in TOPK_FRACS:
+        comp = TopK(frac)
+        k = comp.k_for(n)
+        pay, _ = comp.encode(u, None)
+        if frac == trainer.compressor.inner.frac and not (
+                torch.equal(pay["idx"], captured["payload"]["idx"])
+                and torch.equal(pay["val"], captured["payload"]["val"])):
+            fail("the selection differs from the one the round shipped")
+        # a row with ties at the boundary: the 100 magnitudes around the
+        # k-th set to the k-th one, signs alternating
+        tied = u[0].clone()
+        order = pay["idx"][0].long()
+        kth = tied.abs()[order[k - 1]]
+        around = torch.sort(tied.abs(), descending=True,
+                            stable=True).indices[max(k - 50, 0): k + 50]
+        signs = 1.0 - 2.0 * (torch.arange(around.numel(),
+                                          device=u.device) % 2)
+        tied[around] = kth * signs
+        for label, vecs, got in (
+                ("the EF input [K, n]", u, pay["idx"]),
+                ("a row with 100 ties at the k-th magnitude", tied[None, :],
+                 top_k_abs_indices(tied[None, :], k))):
+            cpu = top_k_abs_indices(vecs.cpu(), k)
+            host = np.stack([stable_order_numpy(r, k)
+                             for r in vecs.cpu().numpy()])
+            same_cpu = torch.equal(got.cpu(), cpu)
+            same_np = bool((got.cpu().numpy() == host).all())
+            log(f"path data (top-k selection, frac {frac}, k={k}, {label}): "
+                f"card vs CPU equal {same_cpu}, card vs numpy stable sort "
+                f"equal {same_np}")
+            if not (same_cpu and same_np):
+                fail(f"the top-k selection on the card differs on {label}")
+        fn = make_sparse_fused_mean(pay, z, K, mesh)
+        runs = [fn(None) for _ in range(3)]
+        torch.cuda.synchronize()
+        repeat = all(torch.equal(runs[0], r) for r in runs[1:])
+        cpu = make_sparse_fused_mean({key: v.cpu() for key, v in pay.items()},
+                                     z.cpu(), K, mesh)(None)
+        ref = z.double() + comp.decode(pay, n).double().sum(dim=0) / K
+        err = float((runs[0].double() - ref).abs().max())
+        lim = TOPK_MEAN_REL * float(ref.abs().max())
+        log(f"path data (sparse fused mean, frac {frac}, k={k}, "
+            f"D={mesh.size}): three runs bitwise {repeat}; card vs CPU "
+            f"bitwise {torch.equal(runs[0].cpu(), cpu)}; vs the float64 "
+            f"dense mean of the reconstructions max_abs_err {err:.3e} "
+            f"(limit {lim:.3e}); {torch.unique(pay['idx']).numel()} "
+            f"distinct indices of {K * k}")
+        if not repeat:
+            fail("the sparse fused mean does not repeat bit for bit")
+        if not torch.equal(runs[0].cpu(), cpu):
+            fail("the sparse fused mean on the card differs from the CPU's")
+        if not err <= lim:
+            fail(f"the sparse fused mean lies {err:.3e} from the dense mean")
+        wire, fused = K * comp.bytes_on_wire(n), fused_bytes_on_wire(
+            comp, n, mesh.size, K)
+        if (k, wire, fused) != TOPK_LARGEST[frac]:
+            fail(f"k, bytes_on_wire, bytes_fused {k}, {wire}, {fused} at "
+                 f"frac {frac} are not {TOPK_LARGEST[frac]}")
+        sel_ms = cuda_time_ms(lambda: top_k_abs_indices(u, k), iters=10,
+                              warmup=2)
+        enc_ms = cuda_time_ms(lambda: comp.encode(u, None), iters=10,
+                              warmup=2)
+        mean_ms = cuda_time_ms(lambda: fn(None), iters=10, warmup=2)
+        log(json.dumps({"topk_timing": "largest block", "frac": frac, "N": n,
+                        "K": K, "k": k, "bytes_on_wire": wire,
+                        "bytes_fused": fused, "selection_ms": sel_ms,
+                        "encode_ms": enc_ms,
+                        "sparse_fused_mean_ms": mean_ms}))
+
+
+def run_no_consensus(dev) -> None:
+    """Phase 16: ``no_consensus_multi`` on ResNet18 (the whole net trains,
+    Adam afresh every epoch); every epoch finite, every parameter tensor
+    changed, Adam's step count restarting at 1 in every epoch of every
+    client; the epoch times and the peak device memory printed."""
+    import torch
+
+    from federated_pytorch_test_tpu_torch.drivers import no_consensus_multi
+    from federated_pytorch_test_tpu_torch.train import engine
+    from federated_pytorch_test_tpu_torch.utils.tree import tree_map
+
+    def leaves(tree) -> list:
+        out = []
+        tree_map(out.append, tree)
+        return out
+
+    counts = []
+    adam_step = engine.adam_step
+
+    def counting(x, g, mu, nu, count, lr):
+        counts.append(count)
+        return adam_step(x, g, mu, nu, count, lr)
+
+    engine.adam_step = counting
+    try:
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        trainer, state, history = no_consensus_multi.main(NO_CONSENSUS_ARGV,
+                                                          log=log)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        engine.adam_step = adam_step
+    peak = torch.cuda.max_memory_allocated(dev)
+    N = trainer.block_size(None)
+    log(f"no-consensus: {len(history)} epochs in {wall:.2f} s, trainable "
+        f"{N} a client, max_memory_allocated {peak} B")
+    for rec in history:
+        log(json.dumps({"epoch": rec["epoch"], "loss": rec["loss"],
+                        "epoch_seconds": rec["epoch_seconds"],
+                        "mean_accuracy": float(np.mean(rec["accuracy"]))}))
+    if len(history) != NO_CONSENSUS_EPOCHS or not all(
+            np.isfinite(r["loss"]) and np.isfinite(r["accuracy"]).all()
+            for r in history):
+        fail(f"expected {NO_CONSENSUS_EPOCHS} finite epochs: {history}")
+    steps = len(counts) // (trainer.cfg.K * NO_CONSENSUS_EPOCHS)
+    if counts != list(range(1, steps + 1)) * trainer.cfg.K * \
+            NO_CONSENSUS_EPOCHS:
+        fail("Adam's step count did not restart at 1 in every epoch")
+    before, after = leaves(trainer.params0), leaves(state.params)
+    unchanged = sum(torch.equal(a, b) for a, b in zip(before, after))
+    if unchanged:
+        fail(f"{unchanged} of {len(before)} parameter tensors did not change")
+    log(f"no-consensus: {len(before)} parameter tensors all changed; "
+        f"{steps} Adam steps an epoch from count 1")
+
+
+def run_fedprox(dev) -> None:
+    """Phase 17: ``fedprox_multi`` on ResNet18, one round a block; every
+    round finite, every block changed, z never written back (a round
+    returns the clients' parameters it was given)."""
+    import torch
+
+    from federated_pytorch_test_tpu_torch.drivers import fedprox_multi
+
+    with recording_comm_rounds() as rounds:
+        t0 = time.perf_counter()
+        trainer, state, history = fedprox_multi.main(FEDPROX_ARGV, log=log)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    log(f"fedprox: {len(history)} rounds in {wall:.2f} s")
+    for rec in history:
+        log(json.dumps({k: rec[k] for k in (
+            "block", "N", "loss", "primal_residual", "dual_residual",
+            "round_seconds", "train_seconds", "comm_seconds")}))
+    if len(history) != trainer.L or len(rounds) != trainer.L:
+        fail(f"expected {trainer.L} rounds, got {len(history)}")
+    for rec in history:
+        if not all(np.isfinite(rec[k]) for k in
+                   ("loss", "primal_residual", "dual_residual")):
+            fail(f"non-finite loss or residual: {rec}")
+    if not all(before is after for _, before, after, _ in rounds):
+        fail("FedProx wrote z back to the clients")
+    same = blocks_unchanged(trainer, state)
+    if same:
+        fail(f"blocks {same} did not change")
+
+
+def run_lbfgs(dev) -> None:
+    """Phase 18: ``federated_multi --optimizer lbfgs`` on Net, one round a
+    block; every round finite, every block changed, the closure
+    evaluations of each L-BFGS step counted and printed."""
+    import torch
+
+    from federated_pytorch_test_tpu_torch.drivers import federated_multi
+    from federated_pytorch_test_tpu_torch.optim import lbfgs
+
+    evals = []
+    step = lbfgs.LBFGSNew.step
+
+    def counting(self, loss_fn, x, state):
+        n = [0]
+
+        def counted(v):
+            n[0] += 1
+            return loss_fn(v)
+
+        out = step(self, counted, x, state)
+        evals.append(n[0])
+        return out
+
+    lbfgs.LBFGSNew.step = counting
+    try:
+        t0 = time.perf_counter()
+        trainer, state, history = federated_multi.main(LBFGS_ARGV, log=log)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        lbfgs.LBFGSNew.step = step
+    log(f"lbfgs: {len(history)} rounds in {wall:.2f} s, {len(evals)} L-BFGS "
+        f"steps, closure evaluations a step min {min(evals)} mean "
+        f"{np.mean(evals):.3f} max {max(evals)} (history "
+        f"{trainer.lbfgs.history_size}, max_iter {trainer.lbfgs.max_iter})")
+    for rec in history:
+        log(json.dumps({k: rec[k] for k in (
+            "block", "N", "loss", "dual_residual", "round_seconds",
+            "train_seconds", "comm_seconds")}))
+    if len(history) != trainer.L:
+        fail(f"expected {trainer.L} rounds, got {len(history)}")
+    for rec in history:
+        if not all(np.isfinite(rec[k]) for k in ("loss", "dual_residual")):
+            fail(f"non-finite loss or residual: {rec}")
+    if not evals or min(evals) < 1:
+        fail("no L-BFGS step evaluated its closure")
+    same = blocks_unchanged(trainer, state)
+    if same:
+        fail(f"blocks {same} did not change")
+
+
+def run_accuracy_comparison() -> None:
+    """Phase 19: ``accuracy_comparison.run_comparison`` at its defaults on
+    the card; the four final accuracies printed, every curve finite and
+    not empty."""
+    import torch
+
+    from federated_pytorch_test_tpu_torch.drivers import accuracy_comparison
+
+    t0 = time.perf_counter()
+    res = accuracy_comparison.run_comparison(device="cuda", log=log)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    curves = ("standalone", "fedavg", "consensus", "upper_k1")
+    log(json.dumps({"accuracy_comparison": res["config"],
+                    "data_source": res["data_source"], "seconds": wall,
+                    "points": {c: len(res[c]) for c in curves},
+                    "final": res["final"]}))
+    for c in curves:
+        if not res[c] or not np.isfinite(res[c]).all():
+            fail(f"the {c} curve is empty or not finite: {res[c]}")
+
 def main() -> None:
     import torch
 
@@ -1272,6 +1716,14 @@ def main() -> None:
     quant_launches, stack3, trainer3, state3 = run_slice3(dev)
     check_fused_path_data(stack3, trainer3)
     profile_comm_step(trainer3, state3)
+    del trainer3, state3, stack3
+    captured4, trainer4 = run_slice4(dev)
+    check_topk_path_data(captured4, trainer4)
+    del captured4, trainer4
+    run_no_consensus(dev)
+    run_fedprox(dev)
+    run_lbfgs(dev)
+    run_accuracy_comparison()
     log(f"summary: krum's selection on the raw y + rho*x stack, kernel vs "
         f"gram_plain: {raw_krum}")
 

@@ -29,17 +29,13 @@ import torch
 #: this, so the flag and the factory cannot drift
 COMPRESS_CHOICES = ("none", "q8", "q4", "topk")
 
-#: what a compressor of the JAX package that the port lacks says
-NOT_PORTED = ("--compress topk is not ported to the PyTorch package yet "
-              "(see ROADMAP.md)")
-
 
 class Compressor:
     """Identity compressor — the dense path.  Base class for the rest.  The
     engine never routes ``--compress none`` through encode/decode."""
 
     name: str = "none"
-    #: sparse payloads take the gather-then-scatter reduction (not ported)
+    #: sparse payloads ({idx, val}) take the gather-then-scatter reduction
     sparse: bool = False
 
     def init_state(self, n: int, seeds: np.ndarray, device) -> Optional[Any]:
@@ -69,14 +65,14 @@ class Compressor:
 def make_compressor(name: str, *, topk_frac: float = 0.01,
                     quant_chunk: int = 256,
                     error_feedback: bool = False) -> Compressor:
-    """Factory behind ``--compress {none,q8,q4,topk}``; ``topk`` raises
-    ``NotImplementedError`` (not ported)."""
+    """Factory behind ``--compress {none,q8,q4,topk}``."""
     from federated_pytorch_test_tpu_torch.compress.error_feedback import (
         ErrorFeedback,
     )
     from federated_pytorch_test_tpu_torch.compress.quantize import (
         StochasticQuantizer,
     )
+    from federated_pytorch_test_tpu_torch.compress.topk import TopK
 
     if name not in COMPRESS_CHOICES:
         raise ValueError(
@@ -87,10 +83,9 @@ def make_compressor(name: str, *, topk_frac: float = 0.01,
                 "error_feedback requires a lossy compressor "
                 "(--compress q8/q4/topk); the dense path has no residual")
         return Compressor()
-    if name == "topk":                    # topk_frac has no use yet
-        raise NotImplementedError(NOT_PORTED)
-    inner = StochasticQuantizer(bits=8 if name == "q8" else 4,
-                                chunk=quant_chunk)
+    inner = (TopK(frac=topk_frac) if name == "topk" else
+             StochasticQuantizer(bits=8 if name == "q8" else 4,
+                                 chunk=quant_chunk))
     return ErrorFeedback(inner) if error_feedback else inner
 
 

@@ -16,10 +16,7 @@ from typing import Optional
 
 import torch
 
-from federated_pytorch_test_tpu_torch.compress.base import (
-    COMPRESS_CHOICES,
-    NOT_PORTED,
-)
+from federated_pytorch_test_tpu_torch.compress.base import COMPRESS_CHOICES
 from federated_pytorch_test_tpu_torch.data.cifar10 import FederatedCifar10
 from federated_pytorch_test_tpu_torch.models.resnet import ResNet9, ResNet18
 from federated_pytorch_test_tpu_torch.models.simple import Net, Net1, Net2
@@ -89,8 +86,6 @@ def parse_config(defaults: FederatedConfig, prog: str, argv=None):
     if given:
         p.error(f"--{given[0]} is not ported to the PyTorch package yet "
                 "(see ROADMAP.md)")
-    if args.compress == "topk":
-        p.error(NOT_PORTED)
     cfg = FederatedConfig(**{f.name: getattr(args, f.name)
                              for f in dataclasses.fields(FederatedConfig)})
     return cfg, args
@@ -121,8 +116,10 @@ def make_trainer(cfg: FederatedConfig, algorithm: Algorithm,
 
 
 def run_classifier_driver(prog: str, defaults: FederatedConfig,
-                          algorithm: Algorithm, argv=None, log=print):
-    """Parse, build, run; returns (trainer, state, history)."""
+                          algorithm: Algorithm, independent: bool = False,
+                          argv=None, log=print):
+    """Parse, build, run; returns (trainer, state, history).
+    ``independent``: the no-consensus baseline (``run_independent``)."""
     cfg, args = parse_config(defaults, prog, argv)
     trainer = make_trainer(cfg, algorithm, args.n_train, args.n_test)
     mname = type(trainer.model).__name__
@@ -131,6 +128,7 @@ def run_classifier_driver(prog: str, defaults: FederatedConfig,
     log(f"{prog}: K={cfg.K} model={mname} devices={trainer.D} "
         f"clients/device={trainer.K_local} data={trainer.data.source} "
         f"device={trainer.device}")
-    state, history = trainer.run(log=log)
+    run = trainer.run_independent if independent else trainer.run
+    state, history = run(log=log)
     log("Finished Training")
     return trainer, state, history

@@ -20,7 +20,11 @@ B1) and accumulates with
 in place on the device's buffer;
 ``impl=quant.PLAIN`` runs the plain versions instead, for comparison.  The
 transport is deterministic round-to-nearest, so a fused round is
-replayable.  The sparse (top-k) fused mean is not ported.
+replayable.
+
+Sparse (top-k) payloads take :func:`make_sparse_fused_mean` instead: the
+``{idx, val}`` payloads are all-gathered as they are and scatter-added into
+one accumulator in client order.
 """
 
 from __future__ import annotations
@@ -33,11 +37,9 @@ from federated_pytorch_test_tpu_torch.compress.quantize import (
     fold_nibbles,
     unfold_nibbles,
 )
+from federated_pytorch_test_tpu_torch.compress.topk import accumulate_rows
 from federated_pytorch_test_tpu_torch.ops.quant import KERNELS, QuantImpl
 from federated_pytorch_test_tpu_torch.parallel.mesh import ClientMesh
-
-SPARSE_NOT_PORTED = ("the sparse (top-k) fused collective is not ported to "
-                     "the PyTorch package yet (see ROADMAP.md)")
 
 
 def transport_params(compressor) -> Optional[Tuple[int, int]]:
@@ -197,8 +199,6 @@ def make_fused_mean(compressor, mesh: ClientMesh, K: int,
                     impl: QuantImpl = KERNELS) -> Callable:
     """``mean_fn(stack, w)`` for ``Algorithm._agg`` that runs the whole
     aggregation as the quantized fused collective (dense q8/q4 codecs)."""
-    if compressor.sparse:
-        raise NotImplementedError(SPARSE_NOT_PORTED)
     tp = transport_params(compressor)
     if tp is None:
         raise ValueError(
@@ -213,15 +213,58 @@ def make_fused_mean(compressor, mesh: ClientMesh, K: int,
     return mean_fn
 
 
+def make_sparse_fused_mean(payload, z: torch.Tensor, K: int,
+                           mesh: ClientMesh) -> Callable:
+    """Per-round ``mean_fn(stack, w)`` for sparse top-k payloads.
+
+    Valid only when the aggregated stack is ``x = z + decode(payload)``
+    (FedAvg, FedProx: the engine falls back to the unfused path for
+    dual-state algorithms).  The closure ignores ``stack`` and rebuilds the
+    mean from the all-gathered ``{idx, val}`` pairs, one scatter-add into a
+    dense accumulator in client order.  Excluded rows (``w == 0``) are
+    where-selected out, never multiplied by 0, so a NaN payload row of an
+    excluded client stays out; an all-excluded round gives zeros.  Every
+    device would compute the same sum, so it is computed once.
+    """
+    idx, val = payload["idx"], payload["val"]
+    n = z.shape[0]
+
+    def mean_fn(stack, w=None):
+        del stack                              # x is implied by (z, payload)
+        ig = mesh.all_gather(mesh.shards(idx))
+        vg = mesh.all_gather(mesh.shards(val))
+        acc = torch.zeros(n, dtype=vg.dtype, device=vg.device)
+        if w is None:
+            # a tensor divisor: CUDA divides by a Python number as a
+            # multiplication by its reciprocal, which rounds apart from the
+            # IEEE division of the CPU and of the JAX package
+            div = torch.full((), float(K), dtype=vg.dtype, device=vg.device)
+            return z + accumulate_rows(acc, ig, vg) / div
+        wg = mesh.all_gather(mesh.shards(w))
+        zero = torch.zeros((), dtype=vg.dtype, device=vg.device)
+        vw = torch.where(wg[:, None] > 0, vg * wg[:, None], zero)
+        accumulate_rows(acc, ig, vw)
+        total = wg.sum()
+        return torch.where(total > 0,
+                           z + acc / torch.where(total > 0, total,
+                                                 torch.ones_like(total)),
+                           zero)
+
+    return mean_fn
+
+
 def fused_bytes_on_wire(compressor, n: int, D: int, K: int) -> int:
-    """Estimated total wire bytes of one fused aggregation round: the
-    reduce-scatter moves ``(D-1)*seg`` packed elements per device and the
-    all-gather the same again, ``2*D*(D-1)*(seg*bits/8 + 4*seg/chunk)``.
-    ``D == 1`` moves nothing."""
+    """Estimated total wire bytes of one fused aggregation round.  Dense:
+    the reduce-scatter moves ``(D-1)*seg`` packed elements per device and
+    the all-gather the same again, ``2*D*(D-1)*(seg*bits/8 + 4*seg/chunk)``.
+    Sparse: the all-gather sends each client's ``8k``-byte payload to the
+    other ``D-1`` devices.  ``D == 1`` moves nothing."""
     if D <= 1:
         return 0
     if compressor.sparse:
-        raise NotImplementedError(SPARSE_NOT_PORTED)
+        # the top-k codec, behind the error-feedback wrapper if any
+        k = getattr(compressor, "inner", compressor).k_for(n)
+        return (D - 1) * K * 8 * k
     tp = transport_params(compressor)
     if tp is None:
         return 0

@@ -14,9 +14,9 @@ per-client partial sums are ``psum``\\ ed over the shards in order, and the
 per-shard results are concatenated.  Krum's chunked distance pass calls the
 Gram kernel (``ops/gram.py``, kernel B3) once per shard.
 
-The compressed exchange's dense payload path (:func:`decode_stack`,
-:func:`compressed_federated_mean`) decodes the clients' payloads before the
-sum; the sparse (top-k) payloads are not ported.
+The compressed exchange's mean (:func:`compressed_federated_mean`) decodes
+dense (q8/q4) payloads before each shard's sum; sparse (top-k) payloads
+are scatter-added into one dense accumulator per shard, in client order.
 """
 
 from __future__ import annotations
@@ -27,7 +27,7 @@ from typing import Optional
 import torch
 
 from federated_pytorch_test_tpu_torch.ops.gram import gram
-from federated_pytorch_test_tpu_torch.ops.packed_reduce import SPARSE_NOT_PORTED
+from federated_pytorch_test_tpu_torch.compress.topk import accumulate_rows
 from federated_pytorch_test_tpu_torch.parallel.mesh import ClientMesh
 
 #: CLI surface — ``drivers/common.py`` derives ``--robust-agg`` from this
@@ -52,9 +52,8 @@ def federated_mean(stack: torch.Tensor, K: int,
 
 def decode_stack(payloads, compressor, n: int) -> torch.Tensor:
     """Dense reconstructions [K, n] of a client-stacked payload (the
-    compressors decode the whole stack at once)."""
-    if compressor.sparse:
-        raise NotImplementedError(SPARSE_NOT_PORTED)
+    compressors decode the whole stack at once; top-k scatters each row
+    into zeros)."""
     return compressor.decode(payloads, n)
 
 
@@ -62,13 +61,24 @@ def compressed_federated_mean(payloads, compressor, n: int, K: int,
                               mesh: Optional[ClientMesh] = None,
                               w: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Mean over clients of the decoded payloads -> dense [n]: each shard's
-    decoded partial sum (``w`` [K] masks clients out of the sum and the
-    divisor), then the psum."""
+    partial sum (``w`` [K] masks clients out of the sum and the divisor),
+    then the psum.  Dense payloads are decoded before the sum; sparse
+    ``{idx, val}`` payloads are scatter-added into one accumulator per
+    shard (the wire stays k-sized, the psum one dense vector)."""
     mesh = mesh or ClientMesh(1)
-    d = decode_stack(payloads, compressor, n)
-    if w is not None:
-        d = d * w[:, None]
-    total = mesh.federated_sum(d)
+    if compressor.sparse:
+        val = payloads["val"]
+        if w is not None:
+            val = val * w[:, None]
+        total = mesh.psum([
+            accumulate_rows(torch.zeros(n, dtype=val.dtype, device=val.device),
+                            i, v)
+            for i, v in zip(mesh.shards(payloads["idx"]), mesh.shards(val))])
+    else:
+        d = decode_stack(payloads, compressor, n)
+        if w is not None:
+            d = d * w[:, None]
+        total = mesh.federated_sum(d)
     if w is None:
         return total / K
     return total / mesh.psum([s.sum() for s in mesh.shards(w)])

@@ -2,7 +2,8 @@
 
 The subset of ``federated_pytorch_test_tpu/train/config.py``'s
 ``FederatedConfig`` that the ported paths read (the CPC trainer and the
-classifier consensus round, with or without the compressed exchange),
+classifier drivers: FedAvg, FedProx, ADMM consensus and the no-consensus
+baseline, with the robust or compressed exchange and Adam or L-BFGS),
 with the JAX package's defaults, plus the
 device the run uses.  A knob of the JAX package that is missing here is not
 ported yet (``ROADMAP.md``); the drivers refuse it by name.
@@ -42,11 +43,11 @@ class FederatedConfig:
     robust_chunked: bool = False   # segment-owned robust aggregation
     num_devices: Optional[int] = None  # client-mesh shards (None: one)
 
-    compress: str = "none"         # none|q8|q4 (topk not ported yet)
+    compress: str = "none"         # none|q8|q4|topk
     topk_frac: float = 0.01
     quant_chunk: int = 256         # values per quantization scale
     error_feedback: bool = False   # carry the compression residual
-    fused_collective: bool = False  # keep q8/q4 payloads packed on the wire
+    fused_collective: bool = False  # keep the payloads packed on the wire
 
     bb_update: bool = False        # Barzilai-Borwein adaptive rho
     bb_period_T: int = 2
@@ -54,8 +55,10 @@ class FederatedConfig:
     bb_epsilon: float = 1e-3
     bb_rhomax: float = 0.1
 
-    optimizer: str = "adam"        # local optimizer ("lbfgs" not ported yet)
+    optimizer: str = "adam"        # local optimizer: adam | lbfgs
     lr: float = 1e-3
+    lbfgs_history_size: int = 10
+    lbfgs_max_iter: int = 4
 
     data_dir: Optional[str] = None  # CIFAR-10 pickle batches (else synthetic)
     drop_last_sample: bool = True  # reference off-by-one parity

@@ -1,25 +1,31 @@
-"""Blockwise-federated classifier engine: the consensus round.
+"""Blockwise-federated classifier engine: the FedAvg, FedProx and consensus
+rounds, and the no-consensus baseline.
 
 Port of ``BlockwiseFederatedTrainer`` of
 ``federated_pytorch_test_tpu/train/engine.py`` with every knob off apart
-from the robust aggregation (``robust_agg``, ``robust_chunked``) and the
-compressed exchange (``compress`` q8/q4, ``error_feedback``,
-``fused_collective``).  The loop nest of the reference is kept::
+from the robust aggregation (``robust_agg``, ``robust_chunked``), the
+compressed exchange (``compress`` q8/q4/topk, ``error_feedback``,
+``fused_collective``) and the local optimizer (``optimizer`` adam or
+lbfgs).  The loop nest of the reference is kept::
 
     Nloop (sweeps over the net) -> L blocks -> Nadmm (comm rounds)
       -> Nepoch (local epochs) -> K clients -> minibatches
 
 Per block: a fresh consensus ``z`` of zeros, fresh duals ``y`` and a fresh
-Adam state per client.  A local epoch trains only the active block, as a
-flat vector in the JAX element order: Adam (optax's update, written out) on
-the gradient of the classifier loss plus the algorithm's penalty.  The
+optimizer state per client.  A local epoch trains only the active block, as
+a flat vector in the JAX element order: Adam (optax's update, written out)
+on the gradient of the classifier loss plus the algorithm's penalty, or one
+``LBFGSNew`` step (batch mode, backtracking) a minibatch on that loss.  The
 comm step gathers the ``[K, N]`` stack, runs the algorithm's global update
 through the (robust) mean over the client mesh, and writes ``z`` back for
 FedAvg.  Under ``compress`` the server sees only the reconstructions
 ``z + decode(encode(x - z))``; with ``fused_collective`` their mean runs as
 the packed quantized collective of ``ops/packed_reduce.py`` (kernels B1
-and B2).  The K clients are a loop on one device (the JAX ``vmap``); each
-keeps its own parameters, BatchNorm statistics, data and normalisation.
+and B2), or for top-k as the all-gather and scatter-add of the sparse
+payloads themselves.  :meth:`BlockwiseFederatedTrainer.run_independent` is
+the baseline: the whole net trains, Adam afresh every epoch, no comm.  The
+K clients are a loop on one device (the JAX ``vmap``); each keeps its own
+parameters, BatchNorm statistics, data and normalisation.
 
 Epoch data is built on the host from the counter-keyed seed of the JAX
 engine (``_epoch_seed``) and staged per epoch, the next epoch prepared on a
@@ -32,6 +38,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import time
+import warnings
 from typing import Any, Callable, Dict, List, NamedTuple, Optional
 
 import numpy as np
@@ -47,7 +54,9 @@ from federated_pytorch_test_tpu_torch.ops import gram, quant
 from federated_pytorch_test_tpu_torch.ops.packed_reduce import (
     fused_bytes_on_wire,
     make_fused_mean,
+    make_sparse_fused_mean,
 )
+from federated_pytorch_test_tpu_torch.optim.lbfgs import LBFGSNew
 from federated_pytorch_test_tpu_torch.parallel.comm import (
     decode_stack,
     make_robust_mean,
@@ -79,7 +88,9 @@ ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
 class ClientState(NamedTuple):
     """Per-client training state, stacked on the leading K dimension:
     parameters and BatchNorm statistics (nested dicts of [K, ...] tensors,
-    PyTorch layout), the active block's Adam state and compressor state."""
+    PyTorch layout), the active block's optimizer state (an
+    :class:`AdamState`, or a list of K ``LBFGSState``) and compressor
+    state."""
 
     params: Any
     batch_stats: Any
@@ -121,16 +132,15 @@ def _normalize_u8(x_u8: torch.Tensor, norm: torch.Tensor) -> torch.Tensor:
 
 
 class BlockwiseFederatedTrainer:
-    """The classifier engine of the consensus, FedAvg and FedProx drivers,
-    on its default path (knobs off) with optional robust aggregation or
-    compressed exchange."""
+    """The classifier engine of the consensus, FedAvg, FedProx and
+    no-consensus drivers, on its default path (knobs off) with optional
+    robust aggregation, compressed exchange or L-BFGS."""
 
     def __init__(self, model: BlockModule, cfg: FederatedConfig,
                  data: FederatedCifar10, algorithm: Algorithm):
-        if cfg.optimizer != "adam":
-            raise NotImplementedError(
-                f"optimizer={cfg.optimizer!r} is not ported yet (the "
-                "classifier's L-BFGS is queued in ROADMAP.md); use 'adam'")
+        if cfg.optimizer not in ("adam", "lbfgs"):
+            raise ValueError(f"unknown optimizer {cfg.optimizer!r}; "
+                             "expected 'adam' or 'lbfgs'")
         self.model = model
         self.cfg = cfg
         self.data = data
@@ -170,7 +180,17 @@ class BlockwiseFederatedTrainer:
                 "replaces the aggregation chokepoint, and the robust "
                 "estimators need the full [K, N] stack replicated on every "
                 "device")
-        if cfg.fused_collective:
+        self._fused_coll = bool(cfg.fused_collective)
+        if self._fused_coll and self.compressor.sparse and algorithm.needs_dual:
+            warnings.warn(
+                "fused_collective with a sparse compressor is unavailable "
+                "for dual-state algorithms: the aggregated stack y + rho*x "
+                "is dense, not the sparse wire payload; falling back to "
+                "the unfused reduction", stacklevel=2)
+            self._fused_coll = False
+        if self._fused_coll and self.compressor.sparse:
+            self.mean_fn = None         # built each round from its payload
+        elif self._fused_coll:
             self.mean_fn = make_fused_mean(self.compressor, self.mesh, K)
         else:
             self.mean_fn = make_robust_mean(
@@ -183,6 +203,18 @@ class BlockwiseFederatedTrainer:
         gen = torch.Generator().manual_seed(cfg.init_seed)
         params, batch_stats = model.init_variables(gen, cfg.init_model)
         self.has_bn = bool(batch_stats)
+        self.lbfgs = None
+        if cfg.optimizer == "lbfgs":
+            if self.has_bn:
+                raise ValueError(
+                    "lbfgs local optimizer requires a BatchNorm-free model "
+                    "(closure re-evaluation with mutable stats is "
+                    "ill-defined; the reference only pairs LBFGSNew with "
+                    "BN-free models)")
+            # batch mode with the backtracking line search
+            # (federated_multi.py:158)
+            self.lbfgs = LBFGSNew(history_size=cfg.lbfgs_history_size,
+                                  max_iter=cfg.lbfgs_max_iter)
         stack = lambda t: (t.unsqueeze(0).expand(K, *t.shape).contiguous()
                            .to(self.device))
         self.params0 = tree_map(stack, params)
@@ -205,21 +237,35 @@ class BlockwiseFederatedTrainer:
     # ------------------------------------------------------------------
     # blocks
     # ------------------------------------------------------------------
-    def mask_for_block(self, ci: int):
-        return blocklib.build_mask(
-            self.params0, blocklib.block_paths(self.order, self.block_ids[ci]))
+    def mask_for_block(self, ci: Optional[int]):
+        """Leaf mask of block ``ci``; ``None`` -> the whole net."""
+        paths = (tuple(self.order) if ci is None else
+                 blocklib.block_paths(self.order, self.block_ids[ci]))
+        return blocklib.build_mask(self.params0, paths)
 
-    def block_size(self, ci: int) -> int:
+    def block_size(self, ci: Optional[int]) -> int:
         one = tree_map(lambda t: t[0], self.params0)
         return codec.masked_size(one, self.order, self.mask_for_block(ci))
 
-    def reg_for_block(self, ci: int):
+    def reg_for_block(self, ci: Optional[int]):
         """(lambda1, lambda2) on the flat vector — the reference quirk: the
         *block* index is tested against the fc parameter ids
-        (federated_multi.py:183)."""
-        if ci in self.linear_ids:
+        (federated_multi.py:183).  The whole net (``None``) has none."""
+        if ci is not None and ci in self.linear_ids:
             return (self.cfg.lambda1, self.cfg.lambda2)
         return (0.0, 0.0)
+
+    def init_opt(self, params, ci: Optional[int]):
+        """Fresh optimizer state of every client on block ``ci``: Adam's
+        zero moments, or each client's ``LBFGSState`` at its block vector."""
+        N = self.block_size(ci)
+        if self.lbfgs is None:
+            f32 = dict(dtype=torch.float32, device=self.device)
+            return AdamState(torch.zeros(self.cfg.K, N, **f32),
+                             torch.zeros(self.cfg.K, N, **f32), 0)
+        X = codec.get_trainable_stack(params, self.order,
+                                      self.mask_for_block(ci))
+        return [self.lbfgs.init(x) for x in X]
 
     def _init_comp_state(self, ci: int):
         """Fresh [K]-stacked compressor state for block ``ci`` (or None),
@@ -285,47 +331,63 @@ class BlockwiseFederatedTrainer:
                                           sample_weight=bn_w)
         return cross_entropy(logits, yb, wb), new_bs
 
-    def train_epoch(self, state: ClientState, ci: int, y, z, rho, xb, yb, wb):
-        """One local epoch of every client on block ``ci``; returns the new
-        state and the [K] per-client sums of the step losses."""
+    def train_epoch(self, state: ClientState, ci: Optional[int], y, z, rho,
+                    xb, yb, wb):
+        """One local epoch of every client on block ``ci`` (``None``: the
+        whole net); returns the new state and the [K] per-client sums of the
+        step losses."""
         cfg, algo = self.cfg, self.algo
         order, mask = self.order, self.mask_for_block(ci)
         lam1, lam2 = self.reg_for_block(ci)
         reg_on = lam1 != 0.0 or lam2 != 0.0
-        opt: AdamState = state.opt_state
+        lbfgs = self.lbfgs is not None
+        opt = state.opt_state
         X = codec.get_trainable_stack(state.params, order, mask)
-        xs, mus, nus, bss, losses = [], [], [], [], []
+        xs, opts, bss, losses = [], [], [], []
         for k in range(cfg.K):
             pk = tree_map(lambda t: t[k], state.params)
             bsk = tree_map(lambda t: t[k], state.batch_stats)
-            xk, mu, nu = X[k], opt.mu[k], opt.nu[k]
+            xk = X[k]
+            ok = opt[k] if lbfgs else (opt.mu[k], opt.nu[k])
             step_losses = []
             for step in range(xb.shape[1]):
-                v = xk.detach().requires_grad_(True)
-                p = codec.put_trainable_values(pk, order, mask, v)
-                loss, new_bs = self.model_loss(
-                    p, bsk, _normalize_u8(xb[k, step], self.client_norm[k]),
-                    yb[k, step], wb[k, step])
-                loss = loss + algo.penalty(v, z, y[k], rho)
-                if reg_on:
-                    loss = loss + l1_l2(v, lam1, lam2)
-                (g,) = torch.autograd.grad(loss, v)
-                with torch.no_grad():
-                    xk, mu, nu = adam_step(xk, g, mu, nu, opt.count + step + 1,
-                                           cfg.lr)
-                bsk = new_bs
+                xn = _normalize_u8(xb[k, step], self.client_norm[k])
+
+                def batch_loss(v, xn=xn, step=step, bsk=bsk):
+                    p = codec.put_trainable_values(pk, order, mask, v)
+                    loss, new_bs = self.model_loss(p, bsk, xn, yb[k, step],
+                                                   wb[k, step])
+                    loss = loss + algo.penalty(v, z, y[k], rho)
+                    if reg_on:
+                        loss = loss + l1_l2(v, lam1, lam2)
+                    return loss, new_bs
+
+                if lbfgs:
+                    # the closure is the flat loss of the active block; a
+                    # BN-free model has no statistics to carry
+                    xk, ok, loss = self.lbfgs.step(
+                        lambda v: batch_loss(v)[0], xk, ok)
+                else:
+                    v = xk.detach().requires_grad_(True)
+                    loss, bsk = batch_loss(v)
+                    (g,) = torch.autograd.grad(loss, v)
+                    with torch.no_grad():
+                        xk, mu, nu = adam_step(xk, g, *ok,
+                                               opt.count + step + 1, cfg.lr)
+                    ok = (mu, nu)
                 step_losses.append(loss.detach())
             xs.append(xk)
-            mus.append(mu)
-            nus.append(nu)
+            opts.append(ok)
             bss.append(bsk)
             losses.append(torch.stack(step_losses).sum())
         params = codec.put_trainable_stack(state.params, order, mask,
                                            torch.stack(xs))
         batch_stats = tree_stack(bss) if self.has_bn else state.batch_stats
-        opt = AdamState(torch.stack(mus), torch.stack(nus),
-                        opt.count + xb.shape[1])
-        return (ClientState(params, batch_stats, opt, state.comp),
+        if not lbfgs:
+            opts = AdamState(torch.stack([m for m, _ in opts]),
+                             torch.stack([n for _, n in opts]),
+                             opt.count + xb.shape[1])
+        return (ClientState(params, batch_stats, opts, state.comp),
                 torch.stack(losses))
 
     def _comm_mode(self, nadmm: int) -> str:
@@ -345,10 +407,14 @@ class BlockwiseFederatedTrainer:
         order, mask = self.order, self.mask_for_block(ci)
         x = codec.get_trainable_stack(state.params, order, mask)
         comp = state.comp
+        mean_fn = self.mean_fn
         if self.compressor.name != "none":
             # uplink-compress the deltas x_k - z: every update below (mean,
             # duals, BB) runs on the reconstructions the server sees
             payload, comp = self.compressor.encode(x - z[None, :], comp)
+            if self._fused_coll and self.compressor.sparse:
+                # the k-sized payloads go over the wire themselves
+                mean_fn = make_sparse_fused_mean(payload, z, cfg.K, self.mesh)
             x = z[None, :] + decode_stack(payload, self.compressor, x.shape[1])
         if mode == "bb_store":
             x0 = x
@@ -358,7 +424,7 @@ class BlockwiseFederatedTrainer:
                 BBConfig(cfg.bb_period_T, cfg.bb_alphacorrmin,
                          cfg.bb_epsilon, cfg.bb_rhomax))
         znew, ynew, diag = self.algo.global_update(
-            x, z, y, rho, cfg.K, self.mesh, w=None, mean_fn=self.mean_fn)
+            x, z, y, rho, cfg.K, self.mesh, w=None, mean_fn=mean_fn)
         params = state.params
         if self.algo.writeback:
             params = codec.put_trainable_stack(
@@ -427,8 +493,7 @@ class BlockwiseFederatedTrainer:
                     state.params, self.order, self.mask_for_block(ci))
                     if cfg.bb_update else torch.zeros(K, 1, **f32))
                 state = ClientState(state.params, state.batch_stats,
-                                    AdamState(torch.zeros(K, N, **f32),
-                                              torch.zeros(K, N, **f32), 0),
+                                    self.init_opt(state.params, ci),
                                     self._init_comp_state(ci))
                 for nadmm in range(cfg.Nadmm):
                     t_round = time.perf_counter()
@@ -467,7 +532,7 @@ class BlockwiseFederatedTrainer:
                         k: v - launches0[k] for k, v in _launch_counts().items()}
                     if algo.communicates:
                         rec["bytes_on_wire"] = self.round_bytes_on_wire(N, K)
-                        if cfg.fused_collective:
+                        if self._fused_coll:
                             rec["bytes_fused"] = self.round_bytes_fused(N)
                     if cfg.check_results:
                         rec["accuracy"] = self.evaluate(state)
@@ -480,4 +545,41 @@ class BlockwiseFederatedTrainer:
                         msg += " acc=" + np.array2string(rec["accuracy"],
                                                          precision=2)
                     log(msg)
+        return state, history
+
+    def run_independent(self, state: Optional[ClientState] = None,
+                        log: Callable[[str], None] = print):
+        """The no-consensus baseline (no_consensus_multi.py:128-166): the
+        whole net trains for Nepoch epochs, Adam created afresh every
+        epoch, no comm; returns (state, history), one record per epoch."""
+        try:
+            return self._run_independent(state, log)
+        finally:
+            self.close()
+
+    def _run_independent(self, state, log):
+        cfg = self.cfg
+        state = state or self.init_state()
+        f32 = dict(dtype=torch.float32, device=self.device)
+        z = torch.zeros(1, **f32)
+        y = torch.zeros(cfg.K, 1, **f32)
+        rho = torch.tensor(cfg.admm_rho0, **f32)
+        history: List[Dict[str, Any]] = []
+        for epoch in range(cfg.Nepoch):
+            t_epoch = time.perf_counter()
+            state = ClientState(state.params, state.batch_stats,
+                                self.init_opt(state.params, None))
+            xb, yb, wb = self._stage_epoch(last=epoch == cfg.Nepoch - 1)
+            state, losses = self.train_epoch(state, None, y, z, rho,
+                                             xb, yb, wb)
+            loss_host = losses.cpu().numpy()
+            rec = dict(epoch=epoch, loss=float(np.sum(loss_host)),
+                       epoch_seconds=time.perf_counter() - t_epoch)
+            if cfg.check_results:
+                rec["accuracy"] = self.evaluate(state)
+                log(f"Epoch {epoch} acc="
+                    + np.array2string(rec["accuracy"], precision=2))
+            else:
+                log(f"Epoch {epoch} loss={rec['loss']:e}")
+            history.append(rec)
         return state, history

@@ -42,7 +42,9 @@ def test_port_imports_no_jax():
         "parallel.mesh", "parallel.comm", "train.algorithms", "train.losses",
         "train.engine", "drivers.common", "drivers.consensus_multi",
         "ops.quant", "ops.packed_reduce", "compress.base",
-        "compress.quantize", "compress.error_feedback")} <= set(mods)
+        "compress.quantize", "compress.error_feedback", "compress.topk",
+        "ops.topk_select", "drivers.federated_multi", "drivers.fedprox_multi",
+        "drivers.no_consensus_multi", "drivers.accuracy_comparison")} <= set(mods)
 
 
 def test_driver_refuses_cuda_without_a_card(monkeypatch):

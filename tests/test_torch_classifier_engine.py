@@ -33,11 +33,11 @@ import pytest
 import torch
 from jax.sharding import PartitionSpec as P
 
+from _torch_engine_pair import run_both
 from federated_pytorch_test_tpu.data.cifar10 import FederatedCifar10 as JData
 from federated_pytorch_test_tpu.models import base as jbase
 from federated_pytorch_test_tpu.models.resnet import MaskedBatchNorm
 from federated_pytorch_test_tpu.models.simple import Net as JNet
-from federated_pytorch_test_tpu.ops.comm_kernels import force_comm_kernels_impl
 from federated_pytorch_test_tpu.parallel.mesh import (
     CLIENT_AXIS,
     client_mesh,
@@ -49,7 +49,6 @@ from federated_pytorch_test_tpu.train import (
     BlockwiseFederatedTrainer as JTrainer,
     FederatedConfig as JConfig,
 )
-from federated_pytorch_test_tpu_torch import bridge
 from federated_pytorch_test_tpu_torch.data.cifar10 import FederatedCifar10 as TData
 from federated_pytorch_test_tpu_torch.drivers import consensus_multi
 from federated_pytorch_test_tpu_torch.models import base as tbase
@@ -64,7 +63,6 @@ from federated_pytorch_test_tpu_torch.train import algorithms as talg
 from federated_pytorch_test_tpu_torch.train.config import FederatedConfig as TConfig
 from federated_pytorch_test_tpu_torch.train.engine import (
     BlockwiseFederatedTrainer as TTrainer,
-    ClientState,
 )
 
 class JTinyBN(jbase.BlockModule):
@@ -113,11 +111,6 @@ class TTinyBN(Classifier):
         return [[0, 2], [3, 4]]
 
 
-K = 4
-DATA = dict(K=K, batch=16, limit_per_client=40, limit_test=32,
-            biased_input=True)
-BASE = dict(K=K, Nloop=1, Nepoch=1, Nadmm=2, default_batch=16,
-            admm_rho0=0.1, biased_input=True)
 #: (JAX model, port model, config, the modules the two blocks train)
 CASES = {
     "krum_chunked_d2": (JNet, TNet, dict(robust_agg="krum", robust_chunked=True,
@@ -132,25 +125,10 @@ CASES = {
 
 
 def _run_both(jmodel, tmodel, extra, moved):
-    cfg = dict(BASE, **extra)
-    with force_comm_kernels_impl("pallas_interpret"):
-        jt = JTrainer(jmodel(), JConfig(device_data=False, **cfg), JData(**DATA),
-                      jalg.AdmmConsensus())
-        jt.L = 2
-        p0 = jax.tree.map(np.asarray, jt.params0)
-        b0 = jax.tree.map(np.asarray, jt.batch_stats0)
-        jstate, jhist = jt.run(log=lambda m: None)
-    tt = TTrainer(tmodel(), TConfig(device="cpu", **cfg), TData(**DATA),
-                  talg.AdmmConsensus())
-    tt.L = 2
-    tstate, thist = tt.run(ClientState(*bridge.classifier_state_from_jax(p0, b0)),
-                           log=lambda m: None)
-    tparams, tstats = bridge.classifier_state_to_jax(tstate.params,
-                                                     tstate.batch_stats)
-    return dict(jhist=jhist, thist=thist, p0=p0, b0=b0, moved=moved,
-                jparams=jax.tree.map(np.asarray, jstate.params),
-                jstats=jax.tree.map(np.asarray, jstate.batch_stats),
-                tparams=tparams, tstats=tstats)
+    out = run_both(jmodel, tmodel, jalg.AdmmConsensus(), talg.AdmmConsensus(),
+                   dict(Nadmm=2, admm_rho0=0.1, **extra))
+    out["moved"] = moved
+    return out
 
 
 @pytest.fixture(scope="module", params=list(CASES))
@@ -315,7 +293,7 @@ def test_driver_defaults_are_the_reference_ones():
 
 @pytest.mark.parametrize("argv,match", [
     (["--participation", "0.5"], "not ported"),
-    (["--compress", "topk"], "not ported"),
+    (["--device-data"], "not ported"),
     (["--fused-rounds"], "not ported"),
     (["--fault-spec", "drop=0.5"], "not ported"),
 ])
@@ -327,10 +305,22 @@ def test_unported_knobs_are_refused(argv, match, capsys):
 
 
 def test_engine_refuses_lbfgs_and_bad_mesh():
+    """L-BFGS is ported for BatchNorm-free models; on a model with
+    BatchNorm the port refuses it with the JAX engine's ValueError (the
+    JAX engine raises when it builds the block's step, the port at
+    construction).  A mesh that does not divide K, and --robust-chunked
+    without an estimator, are refused too."""
     data = TData(K=4, batch=16, limit_per_client=16, limit_test=16)
-    with pytest.raises(NotImplementedError, match="lbfgs"):
-        TTrainer(TNet(), TConfig(K=4, device="cpu", optimizer="lbfgs"), data,
-                 talg.AdmmConsensus())
+    jt = JTrainer(JTinyBN(), JConfig(K=4, optimizer="lbfgs",
+                                     device_data=False),
+                  JData(K=4, batch=16, limit_per_client=16, limit_test=16),
+                  jalg.AdmmConsensus())
+    with pytest.raises(ValueError, match="BatchNorm-free") as jerr:
+        jt.run(log=lambda m: None)
+    with pytest.raises(ValueError, match="BatchNorm-free") as terr:
+        TTrainer(TTinyBN(), TConfig(K=4, device="cpu", optimizer="lbfgs"),
+                 data, talg.AdmmConsensus())
+    assert str(terr.value) == str(jerr.value)
     with pytest.raises(ValueError, match="not divisible"):
         TTrainer(TNet(), TConfig(K=4, device="cpu", num_devices=3), data,
                  talg.AdmmConsensus())

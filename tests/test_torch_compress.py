@@ -164,9 +164,17 @@ def test_make_compressor_validation_matches_jax(kw):
 
 
 def test_topk_is_not_ported():
+    """Top-k is ported now: the factory builds it, wrapped in error
+    feedback when asked, with the JAX package's names, sparse flag, frac
+    and byte count (``tests/test_torch_topk.py`` holds the codec itself
+    against JAX)."""
     for ef in (False, True):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            tbase.make_compressor("topk", error_feedback=ef)
+        t = tbase.make_compressor("topk", topk_frac=0.05, error_feedback=ef)
+        j = j_make("topk", topk_frac=0.05, error_feedback=ef)
+        assert t.name == j.name == ("topk+ef" if ef else "topk")
+        assert t.sparse and j.sparse
+        assert (t.inner if ef else t).frac == 0.05
+        assert t.bytes_on_wire(1000) == j.bytes_on_wire(1000) == 400
     assert tbase.COMPRESS_CHOICES == ("none", "q8", "q4", "topk")
 
 

@@ -25,16 +25,15 @@ import jax
 import numpy as np
 import pytest
 
+from _torch_engine_pair import K, run_both
 from _torch_jax_draws import jax_block_keys, replay
 from federated_pytorch_test_tpu.data.cifar10 import FederatedCifar10 as JData
 from federated_pytorch_test_tpu.models.simple import Net as JNet
-from federated_pytorch_test_tpu.ops.comm_kernels import force_comm_kernels_impl
 from federated_pytorch_test_tpu.train import algorithms as jalg
 from federated_pytorch_test_tpu.train import (
     BlockwiseFederatedTrainer as JTrainer,
     FederatedConfig as JConfig,
 )
-from federated_pytorch_test_tpu_torch import bridge
 from federated_pytorch_test_tpu_torch.data.cifar10 import FederatedCifar10 as TData
 from federated_pytorch_test_tpu_torch.drivers import consensus_multi
 from federated_pytorch_test_tpu_torch.models.simple import Net as TNet
@@ -42,15 +41,9 @@ from federated_pytorch_test_tpu_torch.train import algorithms as talg
 from federated_pytorch_test_tpu_torch.train.config import FederatedConfig as TConfig
 from federated_pytorch_test_tpu_torch.train.engine import (
     BlockwiseFederatedTrainer as TTrainer,
-    ClientState,
 )
 
-K = 4
-DATA = dict(K=K, batch=16, limit_per_client=40, limit_test=32,
-            biased_input=True)
-BASE = dict(K=K, Nloop=1, Nepoch=1, Nadmm=2, default_batch=16,
-            admm_rho0=0.1, biased_input=True, check_results=False,
-            num_devices=2)
+BASE = dict(Nadmm=2, admm_rho0=0.1, check_results=False, num_devices=2)
 CASES = {"q8_fused": dict(compress="q8", fused_collective=True),
          "q8_unfused": dict(compress="q8")}
 
@@ -68,25 +61,11 @@ def _replay_jax_keys(tt: TTrainer) -> None:
 
 @pytest.fixture(scope="module", params=list(CASES))
 def runs(request):
-    cfg = dict(BASE, **CASES[request.param])
-    with force_comm_kernels_impl("pallas_interpret"):
-        jt = JTrainer(JNet(), JConfig(device_data=False, **cfg), JData(**DATA),
-                      jalg.AdmmConsensus())
-        jt.L = 2
-        p0 = jax.tree.map(np.asarray, jt.params0)
-        b0 = jax.tree.map(np.asarray, jt.batch_stats0)
-        jstate, jhist = jt.run(log=lambda m: None)
-    tt = TTrainer(TNet(), TConfig(device="cpu", **cfg), TData(**DATA),
-                  talg.AdmmConsensus())
-    tt.L = 2
-    _replay_jax_keys(tt)
-    tstate, thist = tt.run(ClientState(*bridge.classifier_state_from_jax(p0, b0)),
-                           log=lambda m: None)
-    tparams, _ = bridge.classifier_state_to_jax(tstate.params,
-                                                tstate.batch_stats)
-    return dict(case=request.param, jhist=jhist, thist=thist, p0=p0,
-                jparams=jax.tree.map(np.asarray, jstate.params),
-                tparams=tparams, tt=tt)
+    out = run_both(JNet, TNet, jalg.AdmmConsensus(), talg.AdmmConsensus(),
+                   dict(BASE, **CASES[request.param]),
+                   replay=_replay_jax_keys)
+    out["case"] = request.param
+    return out
 
 
 def test_round_structure_and_bytes_match(runs):
@@ -153,8 +132,20 @@ def test_engine_validation_matches_jax(kw, match):
 
 
 def test_engine_refuses_topk():
-    with pytest.raises(NotImplementedError, match="not ported"):
-        _port(compress="topk")
+    """Top-k is ported; what the engine refuses is only the sparse fused
+    mean under ADMM, whose aggregated stack y + rho*x is dense: both
+    engines warn with the same message and fall back to the unfused
+    reduction (no ``bytes_fused``).  FedAvg keeps the sparse fused mean
+    (``tests/test_torch_topk_engine.py``)."""
+    kw = dict(compress="topk", error_feedback=True, fused_collective=True,
+              num_devices=2)
+    with pytest.warns(UserWarning, match="falling back") as jw:
+        jt = _jax(**kw)
+    with pytest.warns(UserWarning, match="falling back") as tw:
+        tt = _port(**kw)
+    assert str(tw[0].message) == str(jw[0].message)
+    assert not jt._fused_coll and not tt._fused_coll
+    assert tt.mean_fn is None                   # the plain mean
 
 
 TINY = ["--K", "4", "--model", "net", "--Nloop", "1", "--Nadmm", "1",

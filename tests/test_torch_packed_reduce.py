@@ -152,16 +152,20 @@ def test_packed_fused_mean_kernel_and_plain_sets_agree_on_the_cpu():
 
 
 def test_make_fused_mean_refuses_what_is_not_ported():
-    with pytest.raises(ValueError, match="no \\(bits, chunk\\) transport"):
-        tpr.make_fused_mean(make_compressor("none"), ClientMesh(2), 4)
-
-    class Sparse:
-        sparse = True
-
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tpr.make_fused_mean(Sparse(), ClientMesh(2), 4)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tpr.fused_bytes_on_wire(Sparse(), 100, 2, 4)
+    """The dense fused mean refuses a codec with no (bits, chunk) transport
+    (the identity, top-k) with the JAX message; top-k takes
+    ``make_sparse_fused_mean`` instead, and its byte model is JAX's
+    (``tests/test_torch_topk.py`` holds the sparse mean against JAX)."""
+    for name in ("none", "topk"):
+        with pytest.raises(ValueError, match="no \\(bits, chunk\\) "
+                                             "transport") as terr:
+            tpr.make_fused_mean(make_compressor(name), ClientMesh(2), 4)
+        with pytest.raises(ValueError) as jerr:
+            jpr.make_fused_mean(j_make(name), 2, 4)
+        assert str(terr.value) == str(jerr.value)
+    for n in (100, 4_720_640):
+        assert (tpr.fused_bytes_on_wire(make_compressor("topk"), n, 2, 4)
+                == jpr.fused_bytes_on_wire(j_make("topk"), n, 2, 4))
 
 
 @pytest.mark.parametrize("name", ["none", "q8", "q4"])
