@@ -137,11 +137,29 @@ which stops the script with a non-zero exit if it fails:
 19. ``drivers.accuracy_comparison.run_comparison`` at its defaults (K=10,
     Nloop 3, Nadmm 3, batch 64, 1,024 images a client, 2,048 test images,
     the synthetic multi-prototype data): the four final accuracies, every
-    curve finite and not empty.
+    curve finite and not empty;
+20. slice 5: ``drivers.federated_vae`` (layer-wise FedAvg on
+    ``AutoEncoderCNN``, K=10, batch 128, latent 10, biased_input, Adam lr
+    1e-3, Nadmm 3) cut Nloop 12 -> 1 (12 layers x 3 = 36 rounds), 1,280
+    training images per client, 1,000 test images, with every kernel's
+    launch count set to 0 just before and read just after (none
+    launches).  Every round's loss and dual residual finite, every layer
+    changed, each client's final mean test ELBO per sample finite; the
+    round times, the peak device memory.  Then the first round once more
+    on the card and on the CPU in this process, from the same weights and
+    the same noise (drawn on the CPU): its loss and z's update from the
+    common init within ``VAE_FIRST_ROUND_TOL`` (relative) of the CPU's
+    (cuDNN against the CPU, TF32 off);
+21. slice 5: ``drivers.federated_vae_cl`` (FedAvg on ``AutoEncoderCNNCL``,
+    K=1, Kc=10, Lc=32, batch 128, Nadmm 3; L-BFGS history 10 and 4
+    iterations on the encoder and decoder, Adam lr 1e-4 on the latent
+    block, lambda2 1e-3) cut Nloop 12 -> 1 (3 blocks x 3 = 9 rounds) and
+    the data cuts of phase 20: the checks of phase 20, and the closure
+    evaluations of every L-BFGS step counted.
 
-Phases 15-19 run no hand-written kernel (top-k, the scatter-add and the
-L-BFGS update are stock PyTorch, as in the JAX package they are XLA), so
-the kernel line is that of phases 3-14.
+Phases 15-21 run no hand-written kernel (top-k, the scatter-add, the
+L-BFGS update and the VAEs are stock PyTorch, as in the JAX package they
+are XLA), so the kernel line is that of phases 3-14.
 
 The line before the last is the per-kernel JSON record (with each
 kernel's host-only time, and B3's stem and B2's in-place fields); the last
@@ -260,6 +278,19 @@ LBFGS_ARGV = ["--device", "cuda", "--model", "net", "--optimizer", "lbfgs",
               "--Nloop", "1", "--Nadmm", "1", "--n-train", "1280",
               "--n-test", "1000"]
 #: the Pallas sites B1 and B2 replace
+#: phases 20-21 (slice 5): the reference widths with the data cuts
+VAE_ARGV = ["--device", "cuda", "--Nloop", "1", "--n-train", "1280",
+            "--n-test", "1000"]
+VAE_ROUNDS = {"federated_vae": 12 * 3, "federated_vae_cl": 3 * 3}
+#: the first round on the card against the CPU, same weights and noise,
+#: per phase: (the round's loss, relative; z's update from the common
+#: init, the norm of the card's minus the CPU's over the CPU's).  float32
+#: convolutions summed in other orders, carried through 10 Adam or L-BFGS
+#: steps.  Read on an H100 80GB HBM3 at 700 W, three runs (PERF.md): the
+#: loss 0 and 6.6e-8, the update 9.0e-7 to 9.6e-7 and 3.5e-4 to 4.0e-4,
+#: for federated_vae and federated_vae_cl.
+VAE_FIRST_ROUND_TOL = {"federated_vae": (1e-6, 1e-5),
+                       "federated_vae_cl": (1e-6, 2e-3)}
 QUANTIZE_SITE = "federated_pytorch_test_tpu/ops/comm_kernels.py:124"
 DEQUANT_SITE = "federated_pytorch_test_tpu/ops/comm_kernels.py:182"
 #: phase 9's separated case: each moved client's offset has squared norm
@@ -1623,13 +1654,11 @@ def run_fedprox(dev) -> None:
         fail(f"blocks {same} did not change")
 
 
-def run_lbfgs(dev) -> None:
-    """Phase 18: ``federated_multi --optimizer lbfgs`` on Net, one round a
-    block; every round finite, every block changed, the closure
-    evaluations of each L-BFGS step counted and printed."""
-    import torch
+def counting_closures():
+    """Context that counts the closure evaluations of every
+    ``LBFGSNew.step``; yields the list of counts, one a step."""
+    import contextlib
 
-    from federated_pytorch_test_tpu_torch.drivers import federated_multi
     from federated_pytorch_test_tpu_torch.optim import lbfgs
 
     evals = []
@@ -1646,14 +1675,30 @@ def run_lbfgs(dev) -> None:
         evals.append(n[0])
         return out
 
-    lbfgs.LBFGSNew.step = counting
-    try:
+    @contextlib.contextmanager
+    def ctx():
+        lbfgs.LBFGSNew.step = counting
+        try:
+            yield evals
+        finally:
+            lbfgs.LBFGSNew.step = step
+
+    return ctx()
+
+
+def run_lbfgs(dev) -> None:
+    """Phase 18: ``federated_multi --optimizer lbfgs`` on Net, one round a
+    block; every round finite, every block changed, the closure
+    evaluations of each L-BFGS step counted and printed."""
+    import torch
+
+    from federated_pytorch_test_tpu_torch.drivers import federated_multi
+
+    with counting_closures() as evals:
         t0 = time.perf_counter()
         trainer, state, history = federated_multi.main(LBFGS_ARGV, log=log)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    finally:
-        lbfgs.LBFGSNew.step = step
     log(f"lbfgs: {len(history)} rounds in {wall:.2f} s, {len(evals)} L-BFGS "
         f"steps, closure evaluations a step min {min(evals)} mean "
         f"{np.mean(evals):.3f} max {max(evals)} (history "
@@ -1695,6 +1740,118 @@ def run_accuracy_comparison() -> None:
         if not res[c] or not np.isfinite(res[c]).all():
             fail(f"the {c} curve is empty or not finite: {res[c]}")
 
+def kernel_launch_tables() -> tuple:
+    """The launch counters of every kernel wrapper."""
+    from federated_pytorch_test_tpu_torch.ops import gram, infonce, quant
+
+    return infonce.LAUNCHES, gram.LAUNCHES, quant.LAUNCHES
+
+
+def vae_first_round(name: str, argv: list, dev) -> dict:
+    """The first round of the VAE driver ``name`` (its trainer, model and
+    flags ``argv``) on the card and on the CPU, from the same weights (the
+    common init is drawn on a CPU generator) and the same noise (drawn on
+    the CPU, then moved); returns the two losses, their relative
+    difference, the relative distance of the two updates of z, the update's
+    norm relative to the init's, and the seconds of each side."""
+    import importlib
+
+    import torch
+
+    from federated_pytorch_test_tpu_torch.train.engine import torch_normal
+    from federated_pytorch_test_tpu_torch.utils import codec
+
+    mod = importlib.import_module(
+        f"federated_pytorch_test_tpu_torch.drivers.{name}")
+    out = {}
+    for device in ("cuda", "cpu"):
+        tr = mod.build([*argv, "--Nadmm", "1", "--device", device])
+        tr.L = 1
+        tr.normal = lambda words, shape, d: torch_normal(words, shape,
+                                                         "cpu").to(d)
+        mask = tr.mask_for_block(0)
+        z0 = codec.get_trainable_stack(tr.params0, tr.order, mask)[0].cpu()
+        t0 = time.perf_counter()
+        state, hist = tr.run(log=lambda m: None)
+        if device == "cuda":
+            torch.cuda.synchronize(dev)
+        # FedAvg wrote z back to every client
+        z = codec.get_trainable_stack(state.params, tr.order, mask)[0].cpu()
+        out[device] = (hist[0]["loss"], z - z0, time.perf_counter() - t0)
+    (lg, dg, sg), (lc, dc, sc) = out["cuda"], out["cpu"]
+    norm = torch.linalg.vector_norm
+    return {"loss_cuda": lg, "loss_cpu": lc, "loss_rel": abs(lg - lc) / abs(lc),
+            "update_rel": float(norm(dg - dc) / norm(dc)),
+            "update_over_init": float(norm(dc) / norm(z0)),
+            "seconds_cuda": sg, "seconds_cpu": sc}
+
+
+def run_vae(name: str, dev) -> None:
+    """Phases 20 and 21: the VAE driver ``name`` through its ``main`` at the
+    reference widths with the cuts of ``VAE_ARGV``, the kernels' launch
+    counts set to 0 just before and read just after; then its first round
+    on the card against the CPU."""
+    import importlib
+
+    import torch
+
+    mod = importlib.import_module(
+        f"federated_pytorch_test_tpu_torch.drivers.{name}")
+    tables = kernel_launch_tables()
+    for table in tables:
+        for k in table:
+            table[k] = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    with counting_closures() as evals:
+        t0 = time.perf_counter()
+        trainer, state, history = mod.main(VAE_ARGV, log=log)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = {k: v for table in tables for k, v in table.items()}
+    peak = torch.cuda.max_memory_allocated(dev)
+    t0 = time.perf_counter()
+    elbo = trainer.evaluate(state)
+    eval_s = time.perf_counter() - t0
+    cfg, model = trainer.cfg, trainer.model
+    log(f"{name}: K={cfg.K} batch {cfg.default_batch} model "
+        f"{type(model).__name__} ({trainer.block_size(None)} values a "
+        f"client), {len(history)} rounds in {wall:.2f} s, "
+        f"max_memory_allocated {peak} B, kernel launches {launches}")
+    for rec in history:
+        log(json.dumps({k: rec[k] for k in (
+            "block", "nadmm", "N", "loss", "dual_residual", "round_seconds",
+            "stage_seconds", "train_seconds", "comm_seconds")}))
+    log(json.dumps({"phase": name, "test_elbo_per_sample": elbo.tolist(),
+                    "eval_seconds": eval_s}))
+    if evals:
+        log(f"{name}: {len(evals)} L-BFGS steps, closure evaluations a step "
+            f"min {min(evals)} mean {np.mean(evals):.3f} max {max(evals)} "
+            f"(history {trainer.lbfgs.history_size}, max_iter "
+            f"{trainer.lbfgs.max_iter})")
+    if len(history) != VAE_ROUNDS[name]:
+        fail(f"{name}: expected {VAE_ROUNDS[name]} rounds, got {len(history)}")
+    for rec in history:
+        if not all(np.isfinite(rec[k]) for k in ("loss", "dual_residual")):
+            fail(f"{name}: non-finite loss or residual: {rec}")
+    if not np.isfinite(elbo).all() or elbo.shape != (cfg.K,):
+        fail(f"{name}: final test ELBO {elbo}")
+    if any(launches.values()):
+        fail(f"{name} launched a kernel: {launches}")
+    if name == "federated_vae_cl" and (not evals or min(evals) < 1):
+        fail("no L-BFGS step evaluated its closure")
+    same = blocks_unchanged(trainer, state)
+    if same:
+        fail(f"{name}: sweep units {same} did not change")
+    del trainer, state
+    first = vae_first_round(name, VAE_ARGV, dev)
+    loss_tol, update_tol = VAE_FIRST_ROUND_TOL[name]
+    log(json.dumps({"phase": name, "first_round_card_vs_cpu": first,
+                    "loss_rtol": loss_tol, "update_rtol": update_tol}))
+    if not (first["loss_rel"] <= loss_tol
+            and first["update_rel"] <= update_tol):
+        fail(f"{name}: the first round on the card is not the CPU's: {first}")
+
+
 def main() -> None:
     import torch
 
@@ -1724,6 +1881,8 @@ def main() -> None:
     run_fedprox(dev)
     run_lbfgs(dev)
     run_accuracy_comparison()
+    run_vae("federated_vae", dev)
+    run_vae("federated_vae_cl", dev)
     log(f"summary: krum's selection on the raw y + rho*x stack, kernel vs "
         f"gram_plain: {raw_krum}")
 

@@ -5,9 +5,13 @@ The JAX package keeps flax trees (conv kernels HWIO, dense kernels
 (OIHW, [out, in]).  BatchNorm scales, biases and running statistics are
 vectors and cross unchanged.  These helpers take
 the JAX side as numpy arrays (``np.asarray`` of ``CPCTrainer.state0``
-leaves, or one client's flax dict) and return the port's stacked client
+leaves, a classifier's or VAE's stacked params, or one client's flax
+dict) and return the port's stacked client
 state or loaded modules, and back — so that a test can start both sides
-from the same weights.  Flat block vectors need no conversion: the port's
+from the same weights.  A VAE's stacked params cross with
+``tree_from_jax(params, stacked=True)`` and back with ``tree_to_jax``; its
+transposed-conv kernels (flax ``(kh, kw, in, out)``) take the convs'
+layout change.  Flat block vectors need no conversion: the port's
 codec keeps the JAX element order.  An error-feedback residual crosses with
 :func:`ef_state_from_jax`.
 """

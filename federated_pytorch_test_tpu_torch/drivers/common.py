@@ -1,10 +1,12 @@
-"""Shared CLI plumbing for the port's classifier drivers.
+"""Shared CLI plumbing for the port's CIFAR-10 drivers (the classifiers
+and the VAEs).
 
 Port of ``federated_pytorch_test_tpu/drivers/common.py`` without
 supervision, campaigns, checkpoints or telemetry: flags (the JAX knob
 names of every ``FederatedConfig`` field the port has, plus ``--device``,
 ``--n-train`` and ``--n-test``), the data partition, the model choice and
-the engine.  A knob of the JAX driver that the port does not have yet is
+the engine.  A driver may hand in its own trainer class, model and extra
+flags, and refuses the flags of what it fixes.  A knob of the JAX driver that the port does not have yet is
 refused by name instead of being ignored.
 """
 
@@ -12,7 +14,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
-from typing import Optional
+from typing import Callable, Optional, Type
 
 import torch
 
@@ -38,6 +40,9 @@ UNPORTED = (
     "load-model", "midrun-checkpoint", "async-checkpoint", "max-restarts",
     "obs-dir", "obs-sinks", "control", "serve-spec", "profile-dir",
     "be-verbose")
+
+#: parse_config's default of a ``fixed`` field, to tell it from a given one
+_FIXED = object()
 
 
 def build_parser(defaults: FederatedConfig, prog: str) -> argparse.ArgumentParser:
@@ -78,14 +83,24 @@ def build_parser(defaults: FederatedConfig, prog: str) -> argparse.ArgumentParse
     return p
 
 
-def parse_config(defaults: FederatedConfig, prog: str, argv=None):
-    """(FederatedConfig, args) from ``argv``; an unported knob raises."""
+def parse_config(defaults: FederatedConfig, prog: str, argv=None,
+                 add_args: Optional[Callable] = None, fixed=()):
+    """(FederatedConfig, args) from ``argv``; an unported knob raises.
+    ``add_args(parser)`` adds a driver's own flags; ``fixed`` names the
+    FederatedConfig fields the driver sets itself, whose flags raise too."""
     p = build_parser(defaults, prog)
+    if add_args is not None:
+        add_args(p)
+    p.set_defaults(**{name: _FIXED for name in fixed})
     args = p.parse_args(argv)
     given = [n for n in UNPORTED if getattr(args, f"unported_{n}") is not None]
     if given:
         p.error(f"--{given[0]} is not ported to the PyTorch package yet "
                 "(see ROADMAP.md)")
+    for name in fixed:
+        if getattr(args, name) is not _FIXED:
+            p.error(f"--{name.replace('_', '-')} is fixed by {prog}")
+        setattr(args, name, getattr(defaults, name))
     cfg = FederatedConfig(**{f.name: getattr(args, f.name)
                              for f in dataclasses.fields(FederatedConfig)})
     return cfg, args
@@ -107,21 +122,34 @@ def pick_model(cfg: FederatedConfig):
 
 def make_trainer(cfg: FederatedConfig, algorithm: Algorithm,
                  n_train: Optional[int] = None,
-                 n_test: Optional[int] = None) -> BlockwiseFederatedTrainer:
+                 n_test: Optional[int] = None, model=None,
+                 trainer_cls: Type[BlockwiseFederatedTrainer] = BlockwiseFederatedTrainer,
+                 ) -> BlockwiseFederatedTrainer:
+    """``trainer_cls`` on ``model`` (default :func:`pick_model`'s) over the
+    CIFAR-10 partition of ``cfg``."""
     data = FederatedCifar10(
         K=cfg.K, batch=cfg.default_batch, biased_input=cfg.biased_input,
         drop_last_sample=cfg.drop_last_sample, data_dir=cfg.data_dir,
         limit_per_client=n_train, limit_test=n_test)
-    return BlockwiseFederatedTrainer(pick_model(cfg), cfg, data, algorithm)
+    return trainer_cls(pick_model(cfg) if model is None else model, cfg,
+                       data, algorithm)
 
 
 def run_classifier_driver(prog: str, defaults: FederatedConfig,
                           algorithm: Algorithm, independent: bool = False,
                           argv=None, log=print):
-    """Parse, build, run; returns (trainer, state, history).
-    ``independent``: the no-consensus baseline (``run_independent``)."""
+    """Parse, build and run a classifier driver (:func:`run_driver`)."""
     cfg, args = parse_config(defaults, prog, argv)
-    trainer = make_trainer(cfg, algorithm, args.n_train, args.n_test)
+    return run_driver(prog, make_trainer(cfg, algorithm, args.n_train,
+                                         args.n_test), independent, log)
+
+
+def run_driver(prog: str, trainer: BlockwiseFederatedTrainer,
+               independent: bool = False, log=print):
+    """Run the driver ``prog``'s trainer; returns (trainer, state,
+    history).  ``independent``: the no-consensus baseline
+    (``run_independent``)."""
+    cfg = trainer.cfg
     mname = type(trainer.model).__name__
     if mname == "ResNet":
         mname = f"ResNet{trainer.model.qualifier}"

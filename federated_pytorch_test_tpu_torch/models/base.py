@@ -9,11 +9,12 @@ the leaves hold PyTorch-layout tensors, and :func:`module_state` maps a
 path tree onto the module's ``state_dict`` names for
 ``torch.func.functional_call``.
 
-The classifier models (``models/simple.py``, ``models/resnet.py``) are
-functional instead: they hold no parameters, and ``apply(params,
-batch_stats, x, ...)`` runs them on a nested dict of tensors and returns
-the new BatchNorm statistics, so that K clients' parameters and running
-statistics stay separate tensors.  The helpers below are their layers.
+The classifier models (``models/simple.py``, ``models/resnet.py``) and
+the VAEs (``models/vae.py``, ``models/vae_cl.py``) are functional instead:
+they hold no parameters, and ``apply(params, ...)`` runs them on a nested
+dict of tensors (a classifier also returns the new BatchNorm statistics),
+so that K clients' parameters and running statistics stay separate
+tensors.  The helpers below are their layers.
 """
 
 from __future__ import annotations
@@ -57,14 +58,9 @@ class BlockModule(nn.Module):
         return tree
 
 
-class Classifier(BlockModule):
-    """A functional classifier: no parameters of its own."""
-
-    def __init__(self, num_classes: int = 10,
-                 dtype: Optional[torch.dtype] = None):
-        super().__init__()
-        self.num_classes = num_classes
-        self.dtype = dtype
+class FunctionalModel(BlockModule):
+    """A functional model: no parameters of its own; ``param_shapes()``
+    gives the leaves' shapes and ``init_variables`` draws them."""
 
     def param_shapes(self) -> dict:  # pragma: no cover - abstract
         raise NotImplementedError
@@ -72,6 +68,16 @@ class Classifier(BlockModule):
     def init_variables(self, gen: torch.Generator, init_model: bool = True):
         """(params, batch_stats) on the CPU, from ``gen``."""
         return init_tree(self.param_shapes(), gen, init_model), {}
+
+
+class Classifier(FunctionalModel):
+    """A functional classifier."""
+
+    def __init__(self, num_classes: int = 10,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.num_classes = num_classes
+        self.dtype = dtype
 
     def head(self, x: torch.Tensor, p) -> torch.Tensor:
         return dense(x.float(), p)
@@ -103,6 +109,17 @@ def conv(x: torch.Tensor, p: Dict[str, torch.Tensor], stride: int = 1,
         x, w = x.to(dtype), w.to(dtype)
         b = None if b is None else b.to(dtype)
     return F.conv2d(x, w, b, stride=stride, padding=padding)
+
+
+def conv_transpose(x: torch.Tensor, p: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """flax ``nn.ConvTranspose(out, (4, 4), strides=(2, 2), padding="SAME")``
+    on NCHW: doubles H and W.  ``p["kernel"]`` is the flax ``(kh, kw, in,
+    out)`` kernel in the port's layout (``codec.from_jax_layout``: [out, in,
+    kh, kw]).  flax does not flip the kernel (``transpose_kernel=False``)
+    and ``F.conv_transpose2d`` does, so the kernel is flipped here, and
+    [in, out, kh, kw] is the layout ``F.conv_transpose2d`` takes."""
+    w = p["kernel"].flip(2, 3).transpose(0, 1)
+    return F.conv_transpose2d(x, w, p["bias"], stride=2, padding=1)
 
 
 def dense(x: torch.Tensor, p: Dict[str, torch.Tensor],

@@ -1,5 +1,6 @@
-"""Blockwise-federated classifier engine: the FedAvg, FedProx and consensus
-rounds, and the no-consensus baseline.
+"""Blockwise-federated engine: the FedAvg, FedProx and consensus rounds of
+the classifiers and (through ``train/vae_engine.py``) the VAEs, and the
+no-consensus baseline.
 
 Port of ``BlockwiseFederatedTrainer`` of
 ``federated_pytorch_test_tpu/train/engine.py`` with every knob off apart
@@ -32,6 +33,16 @@ engine (``_epoch_seed``) and staged per epoch, the next epoch prepared on a
 one-worker pool meanwhile.  The JAX engine's device-resident permutation
 gather draws ``jax.random`` and has no counterpart here: parity runs pin
 ``device_data=False`` on the JAX side.
+
+The workload hooks are the JAX engine's: ``sweep`` ("blocks", or "layers":
+sweep unit ``ci`` is the (weight, bias) pair ``ci``), ``optimizer_for_block``
+and ``lr_for_block`` (the Adam/L-BFGS switch per block), ``reg_for_block``,
+``model_loss`` and ``eval_batch_metric``/``eval_finalize``.  A model with
+reparametrisation noise (``model.noise_shape``) gets one draw per client
+and minibatch step, a pure function of ``(cfg.seed, epoch counter, client,
+step)`` through :attr:`BlockwiseFederatedTrainer.normal`; every closure
+evaluation of that step's L-BFGS line search sees the same draw, as the
+JAX engine fixes ``fold_in(key, step)`` for the whole step.
 """
 
 from __future__ import annotations
@@ -39,7 +50,7 @@ from __future__ import annotations
 import concurrent.futures
 import time
 import warnings
-from typing import Any, Callable, Dict, List, NamedTuple, Optional
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -83,6 +94,20 @@ from federated_pytorch_test_tpu_torch.utils.tree import tree_map, tree_stack
 
 #: optax.adam's defaults
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
+
+#: seed words of the evaluation's fixed noise draw (the JAX engine
+#: evaluates with ``PRNGKey(0)`` whatever the run's seed)
+EVAL_NOISE_WORDS = (0,)
+
+
+def torch_normal(words: Sequence[int], shape: Sequence[int],
+                 device) -> torch.Tensor:
+    """Standard normal float32 draw of ``shape`` from a generator on
+    ``device`` seeded from the words ``words``."""
+    g = torch.Generator(device=device)
+    g.manual_seed(int(np.random.SeedSequence(list(words))
+                      .generate_state(1, np.uint64)[0] >> np.uint64(1)))
+    return torch.randn(tuple(shape), generator=g, device=device)
 
 
 class ClientState(NamedTuple):
@@ -132,15 +157,18 @@ def _normalize_u8(x_u8: torch.Tensor, norm: torch.Tensor) -> torch.Tensor:
 
 
 class BlockwiseFederatedTrainer:
-    """The classifier engine of the consensus, FedAvg, FedProx and
-    no-consensus drivers, on its default path (knobs off) with optional
-    robust aggregation, compressed exchange or L-BFGS."""
+    """The engine of the consensus, FedAvg, FedProx and no-consensus
+    drivers, on its default path (knobs off) with optional robust
+    aggregation, compressed exchange or L-BFGS.  The VAE trainers subclass
+    it and override the workload hooks."""
+
+    #: "blocks" sweeps train_order_block_ids() (federated_multi.py:145-147);
+    #: "layers" sweeps (weight, bias) pairs, the VAE driver's
+    #: unfreeze_one_layer path (federated_vae.py:129)
+    sweep: str = "blocks"
 
     def __init__(self, model: BlockModule, cfg: FederatedConfig,
                  data: FederatedCifar10, algorithm: Algorithm):
-        if cfg.optimizer not in ("adam", "lbfgs"):
-            raise ValueError(f"unknown optimizer {cfg.optimizer!r}; "
-                             "expected 'adam' or 'lbfgs'")
         self.model = model
         self.cfg = cfg
         self.data = data
@@ -154,7 +182,19 @@ class BlockwiseFederatedTrainer:
         self.order = model.param_order()
         self.block_ids = model.train_order_block_ids()
         self.linear_ids = model.linear_layer_ids()
+        # in both sweeps ci ranges over len(train_order_block_ids()): the
+        # reference VAE driver iterates that count but trains LAYER ci
+        # (federated_vae.py:126-129); for its models the counts agree
         self.L = len(self.block_ids)
+        if self.sweep == "layers":
+            n_layers = (len(self.order) + 1) // 2
+            if self.L != n_layers:
+                raise ValueError(
+                    f"layer sweep needs len(train_order_block_ids())=="
+                    f"{n_layers} (layers), got {self.L}")
+        self.noise_shape = getattr(model, "noise_shape", None)
+        #: the noise draw ``(words, shape, device) -> eps``; a test seam
+        self.normal: Callable[..., torch.Tensor] = torch_normal
 
         K = cfg.K
         self.mesh = ClientMesh(usable_device_count(K) if cfg.num_devices is None
@@ -203,18 +243,21 @@ class BlockwiseFederatedTrainer:
         gen = torch.Generator().manual_seed(cfg.init_seed)
         params, batch_stats = model.init_variables(gen, cfg.init_model)
         self.has_bn = bool(batch_stats)
-        self.lbfgs = None
-        if cfg.optimizer == "lbfgs":
-            if self.has_bn:
+        for ci in [None, *range(self.L)]:
+            opt_name = self.optimizer_for_block(ci)
+            if opt_name not in ("adam", "lbfgs"):
+                raise ValueError(f"unknown optimizer {opt_name!r}; "
+                                 "expected 'adam' or 'lbfgs'")
+            if opt_name == "lbfgs" and self.has_bn:
                 raise ValueError(
                     "lbfgs local optimizer requires a BatchNorm-free model "
                     "(closure re-evaluation with mutable stats is "
                     "ill-defined; the reference only pairs LBFGSNew with "
                     "BN-free models)")
-            # batch mode with the backtracking line search
-            # (federated_multi.py:158)
-            self.lbfgs = LBFGSNew(history_size=cfg.lbfgs_history_size,
-                                  max_iter=cfg.lbfgs_max_iter)
+        # batch mode with the backtracking line search, lr 1.0
+        # (federated_multi.py:158); lr_for_block feeds Adam only
+        self.lbfgs = LBFGSNew(history_size=cfg.lbfgs_history_size,
+                              max_iter=cfg.lbfgs_max_iter)
         stack = lambda t: (t.unsqueeze(0).expand(K, *t.shape).contiguous()
                            .to(self.device))
         self.params0 = tree_map(stack, params)
@@ -237,15 +280,29 @@ class BlockwiseFederatedTrainer:
     # ------------------------------------------------------------------
     # blocks
     # ------------------------------------------------------------------
+    def sweep_paths(self, ci: int):
+        """Active leaf paths of sweep unit ``ci``."""
+        if self.sweep == "layers":
+            return blocklib.layer_paths(self.order, ci)
+        return blocklib.block_paths(self.order, self.block_ids[ci])
+
     def mask_for_block(self, ci: Optional[int]):
-        """Leaf mask of block ``ci``; ``None`` -> the whole net."""
-        paths = (tuple(self.order) if ci is None else
-                 blocklib.block_paths(self.order, self.block_ids[ci]))
+        """Leaf mask of sweep unit ``ci``; ``None`` -> the whole net."""
+        paths = tuple(self.order) if ci is None else self.sweep_paths(ci)
         return blocklib.build_mask(self.params0, paths)
 
     def block_size(self, ci: Optional[int]) -> int:
         one = tree_map(lambda t: t[0], self.params0)
         return codec.masked_size(one, self.order, self.mask_for_block(ci))
+
+    def optimizer_for_block(self, ci: Optional[int]) -> str:
+        """'adam' | 'lbfgs': the VAE-CL driver switches per block
+        (federated_vae_cl.py:200-205)."""
+        return self.cfg.optimizer
+
+    def lr_for_block(self, ci: Optional[int]) -> float:
+        """Adam's learning rate on block ``ci``."""
+        return self.cfg.lr
 
     def reg_for_block(self, ci: Optional[int]):
         """(lambda1, lambda2) on the flat vector — the reference quirk: the
@@ -259,7 +316,7 @@ class BlockwiseFederatedTrainer:
         """Fresh optimizer state of every client on block ``ci``: Adam's
         zero moments, or each client's ``LBFGSState`` at its block vector."""
         N = self.block_size(ci)
-        if self.lbfgs is None:
+        if self.optimizer_for_block(ci) == "adam":
             f32 = dict(dtype=torch.float32, device=self.device)
             return AdamState(torch.zeros(self.cfg.K, N, **f32),
                              torch.zeros(self.cfg.K, N, **f32), 0)
@@ -322,25 +379,36 @@ class BlockwiseFederatedTrainer:
     # ------------------------------------------------------------------
     # the local epoch and the comm step
     # ------------------------------------------------------------------
-    def model_loss(self, p, bs, xb, yb, wb):
+    def noise(self, words: Sequence[int], batch: int):
+        """The reparametrisation noise of a batch of ``batch`` rows drawn
+        from the seed words ``words`` (``None`` for a model without noise):
+        ``(cfg.seed, epoch counter, client, step)`` in training,
+        :data:`EVAL_NOISE_WORDS` in evaluation."""
+        if self.noise_shape is None:
+            return None
+        return self.normal(words, self.noise_shape(batch), self.device)
+
+    def model_loss(self, p, bs, xb, yb, wb, noise=None):
         """Per-batch classifier loss -> (scalar, new batch_stats).  The pad
         rows of the last partial minibatch (weight 0) are out of the loss
-        and, unless the data has no partial batch, out of the BN stats."""
+        and, unless the data has no partial batch, out of the BN stats.
+        ``noise``: the step's reparametrisation draw (unused here)."""
         bn_w = None if getattr(self.data, "remainder", 1) == 0 else wb
         logits, new_bs = self.model.apply(p, bs, xb, train=True,
                                           sample_weight=bn_w)
         return cross_entropy(logits, yb, wb), new_bs
 
     def train_epoch(self, state: ClientState, ci: Optional[int], y, z, rho,
-                    xb, yb, wb):
-        """One local epoch of every client on block ``ci`` (``None``: the
-        whole net); returns the new state and the [K] per-client sums of the
-        step losses."""
+                    xb, yb, wb, counter: int = 0):
+        """One local epoch (number ``counter``, which keys the noise) of
+        every client on block ``ci`` (``None``: the whole net); returns the
+        new state and the [K] per-client sums of the step losses."""
         cfg, algo = self.cfg, self.algo
         order, mask = self.order, self.mask_for_block(ci)
         lam1, lam2 = self.reg_for_block(ci)
         reg_on = lam1 != 0.0 or lam2 != 0.0
-        lbfgs = self.lbfgs is not None
+        lbfgs = self.optimizer_for_block(ci) == "lbfgs"
+        lr = self.lr_for_block(ci)
         opt = state.opt_state
         X = codec.get_trainable_stack(state.params, order, mask)
         xs, opts, bss, losses = [], [], [], []
@@ -352,11 +420,14 @@ class BlockwiseFederatedTrainer:
             step_losses = []
             for step in range(xb.shape[1]):
                 xn = _normalize_u8(xb[k, step], self.client_norm[k])
+                # one draw a step: the line search's evaluations share it
+                noise = self.noise((cfg.seed, counter, k, step),
+                                   xb.shape[2])
 
-                def batch_loss(v, xn=xn, step=step, bsk=bsk):
+                def batch_loss(v, xn=xn, step=step, bsk=bsk, noise=noise):
                     p = codec.put_trainable_values(pk, order, mask, v)
                     loss, new_bs = self.model_loss(p, bsk, xn, yb[k, step],
-                                                   wb[k, step])
+                                                   wb[k, step], noise)
                     loss = loss + algo.penalty(v, z, y[k], rho)
                     if reg_on:
                         loss = loss + l1_l2(v, lam1, lam2)
@@ -373,7 +444,7 @@ class BlockwiseFederatedTrainer:
                     (g,) = torch.autograd.grad(loss, v)
                     with torch.no_grad():
                         xk, mu, nu = adam_step(xk, g, *ok,
-                                               opt.count + step + 1, cfg.lr)
+                                               opt.count + step + 1, lr)
                     ok = (mu, nu)
                 step_losses.append(loss.detach())
             xs.append(xk)
@@ -432,23 +503,32 @@ class BlockwiseFederatedTrainer:
         return (ClientState(params, state.batch_stats, state.opt_state, comp),
                 znew, ynew, rho, x0, yhat0, diag)
 
+    def eval_batch_metric(self, p, bs, xb, yb, wb):
+        """One test batch's metric, summed over the evaluation (classifier:
+        the correct count; the pad rows carry weight 0)."""
+        logits, _ = self.model.apply(p, bs, xb, train=False)
+        return accuracy_count(logits, yb, wb)
+
+    def eval_finalize(self, totals: np.ndarray, n_samples: int) -> np.ndarray:
+        """Classifier: percent accuracy (federated_multi.py:121)."""
+        return 100.0 * totals / n_samples
+
     @torch.no_grad()
     def evaluate(self, state: ClientState) -> np.ndarray:
-        """Per-client top-1 accuracy (%) over the whole test set (the
-        wrap-pad rows weighted out)."""
+        """Per-client metric over the whole test set (the wrap-pad rows
+        weighted out): top-1 accuracy (%) for the classifiers."""
         totals = []
         for k in range(self.cfg.K):
             pk = tree_map(lambda t: t[k], state.params)
             bsk = tree_map(lambda t: t[k], state.batch_stats)
             acc = torch.zeros((), dtype=torch.float32, device=self.device)
             for b in range(self.test_x.shape[0]):
-                logits, _ = self.model.apply(
+                acc = acc + self.eval_batch_metric(
                     pk, bsk, _normalize_u8(self.test_x[b], self.client_norm[k]),
-                    train=False)
-                acc = acc + accuracy_count(logits, self.test_y[b],
-                                           self.test_w[b])
+                    self.test_y[b], self.test_w[b])
             totals.append(acc)
-        return 100.0 * torch.stack(totals).cpu().numpy() / self.test_n
+        return self.eval_finalize(torch.stack(totals).cpu().numpy(),
+                                  self.test_n)
 
     def round_bytes_on_wire(self, N: int, n_active: int) -> int:
         """Uplink bytes of a round: every participant ships one encoded
@@ -502,13 +582,14 @@ class BlockwiseFederatedTrainer:
                     stage_s = 0.0
                     for nepoch in range(cfg.Nepoch):
                         t_stage = time.perf_counter()
+                        counter = self._epochs_staged
                         xb, yb, wb = self._stage_epoch(
                             last=(nloop == cfg.Nloop - 1 and ci == self.L - 1
                                   and nadmm == cfg.Nadmm - 1
                                   and nepoch == cfg.Nepoch - 1))
                         stage_s += time.perf_counter() - t_stage
                         state, losses = self.train_epoch(
-                            state, ci, y, z, rho, xb, yb, wb)
+                            state, ci, y, z, rho, xb, yb, wb, counter)
                         loss_acc = (losses if loss_acc is None
                                     else loss_acc + losses)
                     self._sync()
@@ -569,9 +650,10 @@ class BlockwiseFederatedTrainer:
             t_epoch = time.perf_counter()
             state = ClientState(state.params, state.batch_stats,
                                 self.init_opt(state.params, None))
+            counter = self._epochs_staged
             xb, yb, wb = self._stage_epoch(last=epoch == cfg.Nepoch - 1)
             state, losses = self.train_epoch(state, None, y, z, rho,
-                                             xb, yb, wb)
+                                             xb, yb, wb, counter)
             loss_host = losses.cpu().numpy()
             rec = dict(epoch=epoch, loss=float(np.sum(loss_host)),
                        epoch_seconds=time.perf_counter() - t_epoch)

@@ -44,7 +44,9 @@ def test_port_imports_no_jax():
         "ops.quant", "ops.packed_reduce", "compress.base",
         "compress.quantize", "compress.error_feedback", "compress.topk",
         "ops.topk_select", "drivers.federated_multi", "drivers.fedprox_multi",
-        "drivers.no_consensus_multi", "drivers.accuracy_comparison")} <= set(mods)
+        "drivers.no_consensus_multi", "drivers.accuracy_comparison",
+        "models.vae", "models.vae_cl", "train.vae_losses", "train.vae_engine",
+        "drivers.federated_vae", "drivers.federated_vae_cl")} <= set(mods)
 
 
 def test_driver_refuses_cuda_without_a_card(monkeypatch):
