@@ -135,9 +135,9 @@ which stops the script with a non-zero exit if it fails:
     1, Nadmm 3 -> 1 (5 rounds), the data cuts: finite, every block
     changed, the closure evaluations of every L-BFGS step counted;
 19. ``drivers.accuracy_comparison.run_comparison`` at its defaults (K=10,
-    Nloop 3, Nadmm 3, batch 64, 1,024 images a client, 2,048 test images,
-    the synthetic multi-prototype data): the four final accuracies, every
-    curve finite and not empty;
+    Nadmm 3, batch 64, 1,024 images a client, 2,048 test images, the
+    synthetic multi-prototype data) but Nloop 3 -> 1: the four final
+    accuracies, every curve finite and not empty;
 20. slice 5: ``drivers.federated_vae`` (layer-wise FedAvg on
     ``AutoEncoderCNN``, K=10, batch 128, latent 10, biased_input, Adam lr
     1e-3, Nadmm 3) cut Nloop 12 -> 1 (12 layers x 3 = 36 rounds), 1,280
@@ -157,9 +157,64 @@ which stops the script with a non-zero exit if it fails:
     the data cuts of phase 20: the checks of phase 20, and the closure
     evaluations of every L-BFGS step counted.
 
-Phases 15-21 run no hand-written kernel (top-k, the scatter-add, the
-L-BFGS update and the VAEs are stock PyTorch, as in the JAX package they
-are XLA), so the kernel line is that of phases 3-14.
+22. slice 6, krum under attack: ``drivers.consensus_multi`` on ResNet18
+    (slice 2's configuration and data cuts, Nadmm 5 -> 2: 20 rounds) with
+    ``--trim-frac 0.25 --participation 0.8 --fault-spec
+    corrupt=0.2,mode=scale,scale=100,seed=3 --update-guard
+    --quarantine-rounds 1``, the Gram count set to 0 just
+    before and read just after.  Every round finite; every round's
+    exchanged count (``n_active``) and ``fault_corrupted``, and the
+    activity and corruption vectors the engine used, equal a numpy replay
+    of the participation (tag 11), fault (tag 47) and quarantine ledgers,
+    the guard's verdicts read from the recorded rounds; the Gram kernel
+    launched twice in every round with an exchange and never without one;
+    the guard's bound equal to its replay (+inf in a block's first round,
+    then the EMA of the accepted norms) and every verdict equal to one
+    recomputed from the round's own updates against that bound (how many
+    corrupted updates trip it from a block's second round is printed, not
+    checked: the first round calibrates the bound on parameter norms, see
+    PERF.md section 6); in a block's first round krum selects no corrupted
+    client whenever they number at most its f = floor(0.25 m) (rounds with
+    more are printed, not counted); at the largest block's first round
+    the captured shard slabs, absent clients' rows zeroed, through
+    ``gram`` and ``gram_plain`` within the tolerance of phase 4;
+23. slice 6, async rounds with churn: ``drivers.federated_multi`` on
+    ResNet18 with ``--compress q8 --error-feedback --fused-collective
+    --num-devices 2 --async-rounds --max-staleness 2 --staleness-alpha 0.5
+    --fault-spec delay=0.4,drop=0.1,join=0.2,leave=0.1,seed=5`` (Nadmm 3,
+    30 rounds), the B1/B2 counts set to 0 just before and read just after.
+    ``async_arrived``, ``admission_rejected``, ``buffer_depth``,
+    ``staleness_hist``, ``members_active``, ``joined`` and ``left`` equal a
+    numpy replay of the schedule in every round; B1 and B2 launched in
+    every round that admits an update and in no other; at the first round
+    with a fractional (stale) weight, the weighted fused mean through the
+    kernels bit for bit the plain versions' and within ``(log2 D + 1)``
+    grid steps of the dense weighted mean;
+24. slice 6, population cohorts: ``drivers.federated_multi`` on ResNet18
+    with ``--population 40 --cohort-sampling stratified --participation 0.9
+    --compress q8 --error-feedback`` (Nadmm 2, 20 rounds): every round's
+    cohort equal to ``sample_cohort`` replayed; at every cohort rotation a
+    client sampled again within the block holds the error-feedback and
+    stream rows it left with, bit for bit (digests of the rows), and a
+    client new to the block its slot's fresh rows;
+25. slice 6, preemption and resume, in child processes that set
+    ``CUBLAS_WORKSPACE_CONFIG`` and ``torch.use_deterministic_algorithms``
+    before their first cuBLAS handle: ``consensus_multi --model net
+    --participation 0.7 --update-guard --midrun-checkpoint`` (Nadmm 5 -> 3,
+    15 rounds) with ``--fault-spec drop=0.1,preempt=0.1,seed=S``, S picked
+    with ``round_preempt`` so the preemption fires inside a block past the
+    first.  Child 1 exits on ``CollectiveTimeoutError`` at the predicted
+    round; child 2 (``--load-model``) resumes and finishes; a reference
+    child, started beside child 1, runs the spec without ``preempt=``.  Histories and end-of-run
+    checkpoints bit for bit equal; then, with the newest mid-run slot's
+    checksum damaged, a resume falls back to the older slot and still
+    ends bit for bit equal.
+
+Phases 15-21, 24 and 25 run no hand-written kernel (top-k, the
+scatter-add, the L-BFGS update and the VAEs are stock PyTorch, as in the
+JAX package they are XLA; phase 24's q8 exchange is not fused); the
+kernel line's launches are those of phase 5 (B4, B5), phases 8 and 22
+(B3) and phases 12 and 23 (B1, B2).
 
 The line before the last is the per-kernel JSON record (with each
 kernel's host-only time, and B3's stem and B2's in-place fields); the last
@@ -223,7 +278,10 @@ GRAM_SEQUENCE = ((10, 100_003), (10, 1_000_000), (17, 60_000))
 #: slice 2 as chip_smoke drives it (see the module docstring for the cuts)
 SLICE2_ARGV = ["--device", "cuda", "--model", "resnet18", "--robust-agg",
                "krum", "--robust-chunked", "--num-devices", "2", "--Nloop",
-               "1", "--Nadmm", "2", "--n-train", "1280", "--n-test", "1000"]
+               "1", "--Nadmm", "2", "--n-train", "1280", "--n-test", "1000",
+               "--no-save-model"]
+#: rounds of phases 8, 12, 15, 22 and 24 (one rotation of the 10 blocks,
+#: Nadmm 2)
 SLICE2_ROUNDS = 20
 LARGEST_BLOCK_N = 4_720_640
 #: B1/B2 shapes: the largest and the stem shard of ResNet18 at D=2, then
@@ -239,7 +297,8 @@ QUANT_RING = 8
 #: the q8 fused collective in place of krum
 SLICE3_ARGV = ["--device", "cuda", "--model", "resnet18", "--compress", "q8",
                "--fused-collective", "--num-devices", "2", "--Nloop", "1",
-               "--Nadmm", "2", "--n-train", "1280", "--n-test", "1000"]
+               "--Nadmm", "2", "--n-train", "1280", "--n-test", "1000",
+               "--no-save-model"]
 #: the byte models at the largest block (ops/packed_reduce.py,
 #: compress/quantize.py): what the records must carry
 LARGEST_BYTES_FUSED = 9_588_800
@@ -254,7 +313,7 @@ LARGEST_BYTES_ON_WIRE = 47_944_000
 SLICE4_ARGV = ["--device", "cuda", "--model", "resnet18", "--compress", "topk",
                "--topk-frac", "0.1", "--error-feedback", "--fused-collective",
                "--num-devices", "2", "--Nloop", "1", "--Nadmm", "2",
-               "--n-train", "1280", "--n-test", "1000"]
+               "--n-train", "1280", "--n-test", "1000", "--no-save-model"]
 #: top-k at the largest block, for the run's frac and the default 1%:
 #: (k = round(frac * 4,720,640), bytes_on_wire K * 8k, bytes_fused
 #: (D-1) * K * 8k at D = 2)
@@ -268,19 +327,23 @@ TOPK_MEAN_REL = 1e-6
 NO_CONSENSUS_EPOCHS = 2
 NO_CONSENSUS_ARGV = ["--device", "cuda", "--model", "resnet18", "--Nepoch",
                      str(NO_CONSENSUS_EPOCHS), "--n-train", "1280",
-                     "--n-test", "1000"]
+                     "--n-test", "1000", "--no-save-model"]
 #: FedProx on ResNet18: Nloop 12 -> 1, Nadmm 5 -> 1 (10 rounds), the data cuts
 FEDPROX_ARGV = ["--device", "cuda", "--model", "resnet18", "--Nloop", "1",
-                "--Nadmm", "1", "--n-train", "1280", "--n-test", "1000"]
+                "--Nadmm", "1", "--n-train", "1280", "--n-test", "1000",
+                "--no-save-model"]
 #: FedAvg with L-BFGS on Net: Nloop 12 -> 1, Nadmm 3 -> 1 (5 rounds), the
 #: data cuts
 LBFGS_ARGV = ["--device", "cuda", "--model", "net", "--optimizer", "lbfgs",
               "--Nloop", "1", "--Nadmm", "1", "--n-train", "1280",
-              "--n-test", "1000"]
+              "--n-test", "1000", "--no-save-model"]
+#: phase 19: the accuracy comparison's defaults, Nloop 3 -> 1 (the
+#: script's time went to slice 6's phases)
+ACCURACY_NLOOP = 1
 #: the Pallas sites B1 and B2 replace
 #: phases 20-21 (slice 5): the reference widths with the data cuts
 VAE_ARGV = ["--device", "cuda", "--Nloop", "1", "--n-train", "1280",
-            "--n-test", "1000"]
+            "--n-test", "1000", "--no-save-model"]
 VAE_ROUNDS = {"federated_vae": 12 * 3, "federated_vae_cl": 3 * 3}
 #: the first round on the card against the CPU, same weights and noise,
 #: per phase: (the round's loss, relative; z's update from the common
@@ -291,6 +354,39 @@ VAE_ROUNDS = {"federated_vae": 12 * 3, "federated_vae_cl": 3 * 3}
 #: for federated_vae and federated_vae_cl.
 VAE_FIRST_ROUND_TOL = {"federated_vae": (1e-6, 1e-5),
                        "federated_vae_cl": (1e-6, 2e-3)}
+#: phases 22-25 (slice 6): the robustness shell of a round, slice 2's
+#: data cuts.  Phase 22: krum against x100 corruption under partial
+#: participation, the update guard and quarantine (20 rounds)
+KRUM_ATTACK_ARGV = [
+    "--device", "cuda", "--model", "resnet18", "--robust-agg", "krum",
+    "--robust-chunked", "--trim-frac", "0.25", "--num-devices", "2",
+    "--participation", "0.8", "--fault-spec",
+    "corrupt=0.2,mode=scale,scale=100,seed=3", "--update-guard",
+    "--quarantine-rounds", "1", "--Nloop", "1", "--Nadmm", "2",
+    "--n-train", "1280", "--n-test", "1000", "--no-save-model"]
+#: phase 23: buffered async rounds with transit delay and churn over the
+#: q8 fused collective (FedAvg, Nadmm 3 -> 3 kept: 30 rounds)
+ASYNC_ARGV = [
+    "--device", "cuda", "--model", "resnet18", "--compress", "q8",
+    "--error-feedback", "--fused-collective", "--num-devices", "2",
+    "--async-rounds", "--max-staleness", "2", "--staleness-alpha", "0.5",
+    "--fault-spec", "delay=0.4,drop=0.1,join=0.2,leave=0.1,seed=5",
+    "--Nloop", "1", "--Nadmm", "3", "--n-train", "1280", "--n-test", "1000",
+    "--no-save-model"]
+ASYNC_ROUNDS = 30
+#: phase 24: 40 registered clients over the K=10 slots, stratified cohorts
+#: (FedAvg with q8 + error feedback, Nadmm 3 -> 2: 20 rounds)
+POPULATION_ARGV = [
+    "--device", "cuda", "--model", "resnet18", "--population", "40",
+    "--cohort-sampling", "stratified", "--participation", "0.9",
+    "--compress", "q8", "--error-feedback", "--Nloop", "1", "--Nadmm", "2",
+    "--n-train", "1280", "--n-test", "1000", "--no-save-model"]
+#: phase 25: ADMM on Net, deterministic child processes, Nadmm 5 -> 3
+PREEMPT_NADMM, PREEMPT_P = 3, 0.1
+PREEMPT_ARGV = [
+    "--device", "cuda", "--model", "net", "--participation", "0.7",
+    "--update-guard", "--midrun-checkpoint", "--Nloop", "1", "--Nadmm",
+    str(PREEMPT_NADMM), "--n-train", "1280", "--n-test", "1000"]
 QUANTIZE_SITE = "federated_pytorch_test_tpu/ops/comm_kernels.py:124"
 DEQUANT_SITE = "federated_pytorch_test_tpu/ops/comm_kernels.py:182"
 #: phase 9's separated case: each moved client's offset has squared norm
@@ -884,7 +980,8 @@ def profile_slice2(trainer, state) -> None:
         N = trainer.block_size(ci)
         zeros = torch.zeros(K, N, device=trainer.device)
         st = ClientState(state.params, state.batch_stats,
-                         AdamState(zeros, zeros.clone(), 0))
+                         AdamState(zeros, zeros.clone(),
+                                   torch.zeros(K, dtype=torch.int64)))
         args = (ci, zeros, zeros[0], torch.tensor(0.1, device=trainer.device),
                 xb, yb, wb)
         trainer.train_epoch(st, *args)                  # warm-up
@@ -1365,25 +1462,34 @@ def blocks_unchanged(trainer, state) -> list:
 
 def recording_comm_rounds():
     """Context that wraps the engine's ``comm_round`` to keep, per round,
-    (block, params before, params after, z after): references only, no
-    device work inside the timed round; checked after the run."""
+    (block, params before, params after, z after) and the round's shell
+    inputs and outputs (z before, the activity and corruption vectors, the
+    guard's bound and verdicts, the cohort): references only, no device
+    work inside the timed round; checked after the run.  Yields the two
+    lists (rounds, shell)."""
     import contextlib
 
     from federated_pytorch_test_tpu_torch.train import engine
 
-    rounds = []
+    rounds, shell = [], []
     orig = engine.BlockwiseFederatedTrainer.comm_round
 
     def comm_round(self, state, ci, *args, **kw):
         out = orig(self, state, ci, *args, **kw)
         rounds.append((ci, state.params, out[0].params, out[1]))
+        shell.append({
+            "ci": ci, "z": args[0], "active": kw.get("active"),
+            "corrupt": kw.get("corrupt"), "gbound": kw.get("gbound"),
+            "okf": out[7],
+            "cohort": (None if self._cohort is None
+                       else np.array(self._cohort))})
         return out
 
     @contextlib.contextmanager
     def ctx():
         engine.BlockwiseFederatedTrainer.comm_round = comm_round
         try:
-            yield rounds
+            yield rounds, shell
         finally:
             engine.BlockwiseFederatedTrainer.comm_round = orig
 
@@ -1427,7 +1533,7 @@ def run_slice4(dev):
     engine.make_sparse_fused_mean = capturing_make
     try:
         torch.cuda.reset_peak_memory_stats(dev)
-        with recording_comm_rounds() as rounds:
+        with recording_comm_rounds() as (rounds, _):
             t0 = time.perf_counter()
             trainer, state, history = federated_multi.main(SLICE4_ARGV,
                                                            log=log)
@@ -1575,12 +1681,7 @@ def run_no_consensus(dev) -> None:
 
     from federated_pytorch_test_tpu_torch.drivers import no_consensus_multi
     from federated_pytorch_test_tpu_torch.train import engine
-    from federated_pytorch_test_tpu_torch.utils.tree import tree_map
-
-    def leaves(tree) -> list:
-        out = []
-        tree_map(out.append, tree)
-        return out
+    from federated_pytorch_test_tpu_torch.utils.tree import leaves
 
     counts = []
     adam_step = engine.adam_step
@@ -1631,7 +1732,7 @@ def run_fedprox(dev) -> None:
 
     from federated_pytorch_test_tpu_torch.drivers import fedprox_multi
 
-    with recording_comm_rounds() as rounds:
+    with recording_comm_rounds() as (rounds, _):
         t0 = time.perf_counter()
         trainer, state, history = fedprox_multi.main(FEDPROX_ARGV, log=log)
         torch.cuda.synchronize()
@@ -1720,15 +1821,16 @@ def run_lbfgs(dev) -> None:
 
 
 def run_accuracy_comparison() -> None:
-    """Phase 19: ``accuracy_comparison.run_comparison`` at its defaults on
-    the card; the four final accuracies printed, every curve finite and
-    not empty."""
+    """Phase 19: ``accuracy_comparison.run_comparison`` at its defaults but
+    ``ACCURACY_NLOOP`` on the card; the four final accuracies printed,
+    every curve finite and not empty."""
     import torch
 
     from federated_pytorch_test_tpu_torch.drivers import accuracy_comparison
 
     t0 = time.perf_counter()
-    res = accuracy_comparison.run_comparison(device="cuda", log=log)
+    res = accuracy_comparison.run_comparison(Nloop=ACCURACY_NLOOP,
+                                             device="cuda", log=log)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     curves = ("standalone", "fedavg", "consensus", "upper_k1")
@@ -1852,6 +1954,621 @@ def run_vae(name: str, dev) -> None:
         fail(f"{name}: the first round on the card is not the CPU's: {first}")
 
 
+# ---------------------------------------------------------------------------
+# slice 6: the robustness shell of a round (phases 22-25)
+
+
+def masked_gram_check(stack, w, trainer, label: str) -> None:
+    """The shard slabs krum's Gram sees on a partial round (rows of absent
+    and non-finite clients zeroed, as ``robust_federated_mean_chunked``
+    builds them) through ``gram`` and ``gram_plain``, within the tolerance
+    of phase 4."""
+    import torch
+
+    from federated_pytorch_test_tpu_torch.ops import gram
+    from federated_pytorch_test_tpu_torch.parallel import comm
+
+    K, mesh = stack.shape[0], trainer.mesh
+    slabs = mesh.all_to_all(stack)
+    finite = mesh.psum([(~torch.isfinite(s)).float().sum(dim=1)
+                        for s in slabs]) == 0
+    _, act, m, _ = comm._screen(w, K, finite, stack)
+    safe = [comm._where0(act[:, None], s) for s in slabs]
+    zero_rows = int((~act).sum())
+    for d, s in enumerate(safe):
+        gk, gp = gram.gram(s), gram.gram_plain(s)
+        torch.cuda.synchronize()
+        err, tol, ok = gram_within(gk, gp)
+        absent = torch.nonzero(~act).flatten().tolist()
+        log(f"path data ({label}): shard {d} gram [{K}, {s.shape[1]}] with "
+            f"{zero_rows} zero rows (clients {absent}) "
+            f"max_abs_err={err:.3e} tol={tol:.3e}")
+        if not ok:
+            fail(f"gram kernel disagrees with gram_plain on shard {d} of the "
+                 f"masked {label} slab")
+    if zero_rows < 1:
+        fail(f"the captured {label} slab has no masked row")
+
+
+def run_krum_attack(dev) -> int:
+    """Phase 22; returns the Gram launches of the run."""
+    import torch
+
+    from federated_pytorch_test_tpu_torch.drivers import consensus_multi
+    from federated_pytorch_test_tpu_torch.ops import gram
+    from federated_pytorch_test_tpu_torch.parallel import comm
+    from federated_pytorch_test_tpu_torch.train import engine
+    from federated_pytorch_test_tpu_torch.train.faults import (
+        FaultSpec,
+        apply_corruption,
+    )
+
+    captured, sels, deltas = {}, [], []
+    chunked, select = comm.robust_federated_mean_chunked, comm.krum_select
+
+    def corrupting(d, *args, **kw):
+        # each exchange's clean wire deltas, before the corruption
+        deltas.append(d)
+        return apply_corruption(d, *args, **kw)
+
+    def capture(x, w=None, **kw):
+        # the first round with an absent client: at the largest block if
+        # one of its rounds has one, else at any block
+        if w is not None and bool((w == 0).any()):
+            key = "largest" if x.shape[1] == LARGEST_BLOCK_N else "any"
+            if key not in captured:
+                captured[key] = (x.detach().clone(), w.clone())
+        return chunked(x, w, **kw)
+
+    def selecting(g, act, m, trim_frac):
+        sel = select(g, act, m, trim_frac)
+        sels.append((sel, act))
+        return sel
+
+    comm.robust_federated_mean_chunked = capture
+    comm.krum_select = selecting
+    engine.apply_corruption = corrupting
+    try:
+        gram.LAUNCHES["gram"] = 0
+        torch.cuda.reset_peak_memory_stats(dev)
+        with recording_comm_rounds() as (_, shells):
+            t0 = time.perf_counter()
+            trainer, state, history = consensus_multi.main(KRUM_ATTACK_ARGV,
+                                                           log=log)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = gram.LAUNCHES["gram"]
+    finally:
+        comm.robust_federated_mean_chunked = chunked
+        comm.krum_select = select
+        engine.apply_corruption = apply_corruption
+    cfg, K = trainer.cfg, trainer.cfg.K
+    log(f"krum under attack: {len(history)} rounds in {wall:.2f} s, gram "
+        f"launches {launches}, max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated(dev)} B")
+    for rec in history:
+        log(json.dumps({k: rec.get(k) for k in (
+            "block", "nadmm", "N", "loss", "dual_residual", "primal_residual",
+            "n_active", "fault_dropped", "fault_corrupted", "quarantined",
+            "guard_trips", "n_ok", "round_seconds", "train_seconds",
+            "comm_seconds", "kernel_launches")}))
+    if len(history) != SLICE2_ROUNDS:
+        fail(f"expected {SLICE2_ROUNDS} rounds, got {len(history)}")
+    # the numpy replay of the participation, fault and quarantine ledgers
+    # and of the guard's bound; the guard's verdicts recomputed on the card
+    # from the round's own updates
+    spec = FaultSpec.parse(cfg.fault_spec)
+    q = np.zeros(K, np.int64)
+    scale = float("inf")
+    call = 0
+    kept_out = counted = tripped_late = passed_late = 0
+    for rec in history:
+        if not all(np.isfinite(rec[k]) for k in
+                   ("loss", "dual_residual", "primal_residual")
+                   if k in rec):
+            fail(f"non-finite loss or residual: {rec}")
+        nloop, ci, nadmm = rec["nloop"], rec["block"], rec["nadmm"]
+        if nadmm == 0:
+            scale = float("inf")
+        rng = np.random.default_rng([cfg.seed, 11, nloop, ci, nadmm])
+        base = (rng.random(K) < cfg.participation).astype(np.float32)
+        if not base.any():
+            base[int(rng.integers(K))] = 1.0
+        ok = 1.0 - (q > 0)
+        drop, _, corrupt = spec.round_faults(K, nloop, ci, nadmm)
+        comm_m = base * ok * (1.0 - drop)
+        corrupt = corrupt * comm_m
+        n_comm, n_cor = int(comm_m.sum()), int(corrupt.sum())
+        if (rec["n_active"], rec["fault_corrupted"]) != (n_comm, n_cor):
+            fail(f"round {(ci, nadmm)}: n_comm {rec['n_active']} and "
+                 f"fault_corrupted {rec['fault_corrupted']}, the replay "
+                 f"{n_comm} and {n_cor}")
+        if rec["quarantined"] != int((q > 0).sum()):
+            fail(f"round {(ci, nadmm)}: quarantined {rec['quarantined']}, "
+                 f"the replay {int((q > 0).sum())}")
+        q = np.maximum(q - 1, 0)
+        if n_comm == 0:
+            if rec["kernel_launches"]["gram"] != 0:
+                fail(f"gram launched on a round without exchange: {rec}")
+            continue
+        if rec["kernel_launches"]["gram"] != 2:
+            fail(f"gram launched {rec['kernel_launches']['gram']} times, "
+                 f"not 2, in round {(ci, nadmm)}")
+        shell, d0 = shells[call], deltas[call]
+        sel, act = sels[call]
+        call += 1
+        if not (np.array_equal(shell["active"], comm_m)
+                and np.array_equal(shell["corrupt"], corrupt)):
+            fail(f"round {(ci, nadmm)}: the engine's masks are not the "
+                 "replay's")
+        bound = np.float32(np.inf) if not np.isfinite(scale) else \
+            np.float32(cfg.guard_norm_mult * scale)
+        if shell["gbound"] != bound:
+            fail(f"round {(ci, nadmm)}: guard bound {shell['gbound']}, the "
+                 f"replay {bound}")
+        # the guard's test on the round's own updates: the corrupted
+        # deltas as the engine poisons them, finite and within the bound
+        z_in = shell["z"]
+        c = torch.as_tensor(corrupt, device=z_in.device)
+        w = torch.as_tensor(comm_m, device=z_in.device)
+        d = (z_in + apply_corruption(d0, c, spec.mode, spec.scale,
+                                     w=w, mesh=trainer.mesh)) - z_in
+        finite = torch.isfinite(d).all(dim=1)
+        nrm = torch.linalg.vector_norm(
+            torch.where(finite[:, None], d, torch.zeros_like(d)), dim=1)
+        want = (finite & (nrm <= torch.as_tensor(bound, device=d.device))
+                ).float().cpu().numpy()
+        okf = shell["okf"].cpu().numpy()
+        if not np.array_equal(okf, want):
+            fail(f"round {(ci, nadmm)}: guard verdicts {okf.tolist()}, the "
+                 f"recomputation {want.tolist()}")
+        tripped = (comm_m > 0) & (okf < 0.5)
+        q[tripped] = cfg.quarantine_rounds
+        if rec["n_ok"] > 0:
+            nm = rec["guard_norm_mean"]
+            scale = nm if not np.isfinite(scale) else 0.5 * scale + 0.5 * nm
+        bad = corrupt > 0
+        nrm_h = nrm.cpu().numpy()
+        log(f"guard: block {ci} round {nadmm}: bound {float(bound):.6e}, "
+            f"corrupted norms {nrm_h[bad].tolist()}, honest norms max "
+            f"{float(nrm_h[(comm_m > 0) & ~bad].max(initial=0.0)):.6e}, "
+            f"tripped {np.nonzero(tripped)[0].tolist()}")
+        if nadmm > 0:
+            tripped_late += int(tripped[bad].sum())
+            passed_late += int((~tripped[bad]).sum())
+            continue
+        if np.isfinite(bound):
+            fail(f"the first round of block {ci} has a finite bound {bound}")
+        sel, act = sel.cpu().numpy(), act.cpu().numpy()
+        f = int(np.floor(cfg.trim_frac * act.sum()))
+        picked = np.nonzero(sel & bad)[0].tolist()
+        if n_cor > f:
+            log(f"krum under attack: block {ci}'s first round has {n_cor} "
+                f"corrupted clients against f = {f}: not counted")
+            continue
+        counted += 1
+        kept_out += n_cor
+        if picked:
+            fail(f"krum selected corrupted clients {picked} in the first "
+                 f"round of block {ci} (f = {f}, {n_cor} corrupted)")
+    log(f"krum under attack: replay of {len(history)} rounds equal; "
+        f"{counted} first rounds counted, {kept_out} corrupted updates "
+        f"kept out by krum; in later rounds {tripped_late} corrupted "
+        f"updates tripped the guard and {passed_late} passed its bound")
+    if call != len(sels) or call != len(shells) or call != len(deltas):
+        fail(f"{call} exchanges replayed, {len(sels)} krum selections")
+    key = "largest" if "largest" in captured else "any"
+    if key not in captured:
+        fail("no round of the run had an absent client")
+    stack, w = captured[key]
+    masked_gram_check(stack, w, trainer,
+                      f"krum under attack, N={stack.shape[1]}")
+    return launches
+
+
+def async_replay(cfg, spec, history) -> list:
+    """The numpy replay of the buffered-async schedule with churn (no
+    guard, no population): per round the admitted count and the record
+    fields it predicts."""
+    K = cfg.K
+    members = np.ones(K, bool)
+    arrival = np.full(K, -1, np.int64)
+    birth = np.zeros(K, np.int64)
+    out = []
+    for rec in history:
+        nloop, ci, nadmm = rec["nloop"], rec["block"], rec["nadmm"]
+        if nadmm == 0:
+            arrival[:] = -1
+            birth[:] = 0
+        new = spec.round_churn(members, nloop, ci, nadmm)
+        joined, left = new & ~members, members & ~new
+        arrival[left] = -1
+        birth[left] = 0
+        members = new
+        drop, _, _ = spec.round_faults(K, nloop, ci, nadmm)
+        free = arrival < 0
+        dispatch = members & (drop == 0) & free
+        delays = spec.round_delays(K, nloop, ci, nadmm)
+        arrival[dispatch] = nadmm + delays[dispatch]
+        birth[dispatch] = nadmm
+        arrive = arrival == nadmm
+        stale = np.where(arrive, nadmm - birth, 0)
+        admit = arrive & (stale <= cfg.max_staleness)
+        arrival[arrive] = -1
+        out.append((int(admit.sum()), {
+            "async_arrived": int(arrive.sum()),
+            "admission_rejected": int((arrive & ~admit).sum()),
+            "buffer_depth": int((arrival >= 0).sum()),
+            "staleness_hist": np.bincount(
+                stale[admit], minlength=cfg.max_staleness + 1).tolist(),
+            "members_active": int(members.sum()),
+            "joined": int(joined.sum()), "left": int(left.sum())}))
+    return out
+
+
+def run_async_churn(dev) -> dict:
+    """Phase 23; returns the B1/B2 launches of the run."""
+    import math
+
+    import torch
+
+    from federated_pytorch_test_tpu_torch.drivers import federated_multi
+    from federated_pytorch_test_tpu_torch.ops import packed_reduce as pr
+    from federated_pytorch_test_tpu_torch.ops import quant
+    from federated_pytorch_test_tpu_torch.train import engine
+    from federated_pytorch_test_tpu_torch.train.faults import FaultSpec
+
+    captured = {}
+    make = engine.make_fused_mean
+
+    def capturing(compressor, mesh, K):
+        mean_fn = make(compressor, mesh, K)
+
+        def fn(stack, w=None):
+            # the first round with a stale (fractional) weight: at the
+            # largest block if one of its rounds has one, else at any
+            if w is not None and bool(((w > 0) & (w < 1)).any()):
+                key = ("largest" if stack.shape[1] == LARGEST_BLOCK_N
+                       else "any")
+                if key not in captured:
+                    captured[key] = (stack.detach().clone(), w.clone())
+            return mean_fn(stack, w)
+
+        return fn
+
+    engine.make_fused_mean = capturing
+    try:
+        for k in quant.LAUNCHES:
+            quant.LAUNCHES[k] = 0
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        trainer, state, history = federated_multi.main(ASYNC_ARGV, log=log)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(quant.LAUNCHES)
+    finally:
+        engine.make_fused_mean = make
+    cfg = trainer.cfg
+    log(f"async + churn: {len(history)} rounds in {wall:.2f} s, launches "
+        f"{launches}, max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated(dev)} B")
+    fields = ("async_arrived", "admission_rejected", "buffer_depth",
+              "staleness_hist", "members_active", "joined", "left")
+    for rec in history:
+        log(json.dumps({k: rec.get(k) for k in (
+            "block", "nadmm", "N", "loss", "dual_residual", "n_active",
+            *fields, "fault_dropped", "round_seconds", "comm_seconds",
+            "kernel_launches")}))
+    if len(history) != ASYNC_ROUNDS:
+        fail(f"expected {ASYNC_ROUNDS} rounds, got {len(history)}")
+    replay = async_replay(cfg, FaultSpec.parse(cfg.fault_spec), history)
+    for rec, (n_comm, want) in zip(history, replay):
+        got = {k: rec[k] for k in fields}
+        if got != want:
+            fail(f"round {(rec['block'], rec['nadmm'])}: {got}, the replay "
+                 f"{want}")
+        if not all(np.isfinite(rec[k]) for k in ("loss", "dual_residual")
+                   if k in rec):
+            fail(f"non-finite loss or residual: {rec}")
+        ran = min(rec["kernel_launches"][k] for k in launches)
+        if (n_comm >= 1) != (ran >= 1) or (
+                n_comm == 0 and max(rec["kernel_launches"].values())):
+            fail(f"round {(rec['block'], rec['nadmm'])} with {n_comm} "
+                 f"admitted updates launched {rec['kernel_launches']}")
+    log(f"async + churn: the replay of {len(history)} rounds equal; "
+        f"{sum(n for n, _ in replay)} updates admitted, "
+        f"{sum(w['admission_rejected'] for _, w in replay)} rejected, "
+        f"{sum(w['joined'] for _, w in replay)} joins, "
+        f"{sum(w['left'] for _, w in replay)} departures")
+    key = "largest" if "largest" in captured else "any"
+    if key not in captured:
+        fail("no round admitted a stale update (no fractional weight)")
+    # the fused mean at the captured fractional-weight round: kernels and
+    # plain versions bit for bit, within (log2 D + 1) grid steps of the
+    # dense weighted mean
+    stack, w = captured[key]
+    K, n = stack.shape
+    bits, chunk = pr.transport_params(trainer.compressor)
+    wd = w.double()
+    dense = (stack.double() * wd[:, None]).sum(dim=0) / wd.sum()
+    pad = -n % chunk
+    top = torch.nn.functional.pad(dense.abs(), (0, pad)).reshape(-1, chunk)
+    step = (2.0 * top.amax(dim=1) / (2 ** bits - 2)).repeat_interleave(
+        chunk)[:n]
+    mesh = trainer.mesh
+    local, div = pr._weighted_local_sum(stack, w, K, mesh)
+    before = dict(quant.LAUNCHES)
+    got = pr.packed_fused_mean(local, div, mesh, bits, chunk, quant.KERNELS)
+    launched = {k: quant.LAUNCHES[k] - before[k] for k in before}
+    plain = pr.packed_fused_mean(local, div, mesh, bits, chunk, quant.PLAIN)
+    torch.cuda.synchronize()
+    steps = float(((got.double() - dense).abs() / step.clamp(min=1e-30)).max())
+    log(f"path data (async fused mean, D={mesh.size}, N={n}, weights "
+        f"{[round(float(v), 6) for v in w]}): kernels vs plain bitwise "
+        f"{torch.equal(got, plain)}; launches {launched}; vs the dense "
+        f"weighted mean {steps:.4f} grid steps (limit "
+        f"{math.log2(mesh.size) + 1:.4f})")
+    if not torch.equal(got, plain):
+        fail("the fused mean through the kernels differs from the plain "
+             "versions at the fractional-weight round")
+    if min(launched.values()) < 1:
+        fail(f"the fused mean launched no kernel: {launched}")
+    if not steps <= math.log2(mesh.size) + 1:
+        fail(f"the fused mean lies {steps:.3f} grid steps from the dense "
+             "weighted mean")
+    return launches
+
+
+def row_digests(comp, K: int) -> list:
+    """Per slot, a digest of that slot's rows of every client-stacked leaf
+    of the compressor state (bit for bit: the bytes are hashed)."""
+    import hashlib
+
+    from federated_pytorch_test_tpu_torch.utils.tree import leaves
+
+    arrays = [t.detach().cpu().numpy() for t in leaves(comp)]
+    arrays = [a for a in arrays if a.ndim >= 1 and a.shape[0] == K]
+    return [hashlib.blake2b(b"".join(np.ascontiguousarray(a[k]).tobytes()
+                                     for a in arrays)).hexdigest()
+            for k in range(K)]
+
+
+def run_population(dev) -> None:
+    """Phase 24: population cohorts at full width."""
+    import torch
+
+    from federated_pytorch_test_tpu_torch.drivers import federated_multi
+    from federated_pytorch_test_tpu_torch.population.sampler import (
+        sample_cohort,
+    )
+    from federated_pytorch_test_tpu_torch.train import engine
+
+    swaps = []
+    swap = engine.BlockwiseFederatedTrainer._population_swap_comp
+
+    def recording(self, comp, ci):
+        prev = None if self._pop_comp_prev is None else \
+            np.array(self._pop_comp_prev)
+        before = row_digests(comp, self.cfg.K)
+        out = swap(self, comp, ci)
+        fresh = row_digests(self._init_comp_state(ci, "cpu"), self.cfg.K)
+        swaps.append((ci, prev, np.array(self._cohort), before,
+                      row_digests(out, self.cfg.K), fresh))
+        return out
+
+    engine.BlockwiseFederatedTrainer._population_swap_comp = recording
+    try:
+        torch.cuda.reset_peak_memory_stats(dev)
+        with recording_comm_rounds() as (_, shells):
+            t0 = time.perf_counter()
+            trainer, state, history = federated_multi.main(POPULATION_ARGV,
+                                                           log=log)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        engine.BlockwiseFederatedTrainer._population_swap_comp = swap
+    cfg, K = trainer.cfg, trainer.cfg.K
+    log(f"population: {len(history)} rounds in {wall:.2f} s, population "
+        f"{cfg.population}, max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated(dev)} B")
+    for rec, shell in zip(history, shells):
+        log(json.dumps({**{k: rec.get(k) for k in (
+            "block", "nadmm", "N", "loss", "dual_residual", "n_active",
+            "round_seconds", "comm_seconds")},
+            "cohort": shell["cohort"].tolist()}))
+    if len(history) != SLICE2_ROUNDS or len(shells) != SLICE2_ROUNDS:
+        fail(f"expected {SLICE2_ROUNDS} rounds, got {len(history)}")
+    for rec, shell in zip(history, shells):
+        want = sample_cohort(cfg.population, K, seed=cfg.seed,
+                             nloop=rec["nloop"], ci=rec["block"],
+                             nadmm=rec["nadmm"], method=cfg.cohort_sampling)
+        if not np.array_equal(shell["cohort"], want):
+            fail(f"round {(rec['block'], rec['nadmm'])}: cohort "
+                 f"{shell['cohort'].tolist()}, the replay {want.tolist()}")
+        if not all(np.isfinite(rec[k]) for k in ("loss", "dual_residual")):
+            fail(f"non-finite loss or residual: {rec}")
+    # EF rows follow the registry client: a client sampled again gets the
+    # row it left with; a client new to the block its slot's fresh row
+    left_with = {}
+    resumed = fresh_n = 0
+    for ci, prev, cohort, before, after, fresh in swaps:
+        if prev is None:
+            left_with = {}
+        else:
+            for k, rid in enumerate(prev.tolist()):
+                left_with[rid] = before[k]
+        if prev is None and not left_with:
+            continue
+        for k, rid in enumerate(cohort.tolist()):
+            want = left_with.get(rid, fresh[k])
+            if after[k] != want:
+                fail(f"block {ci}: client {rid} in slot {k} did not get "
+                     f"{'its own stashed' if rid in left_with else 'a fresh'}"
+                     " error-feedback row")
+            if rid in left_with:
+                resumed += 1
+            else:
+                fresh_n += 1
+    log(f"population: every cohort equal to sample_cohort's; {resumed} "
+        f"slots resumed their client's own EF row bit for bit, {fresh_n} "
+        "took a fresh row")
+    if resumed < 1:
+        fail("no registry client was sampled again within a block")
+
+
+def preempt_schedule(L: int, nadmm: int, p: float) -> tuple:
+    """(seed, global round index) of the first fault seed whose tag-71
+    draw fires first inside a block (nadmm > 0) past the first block, so
+    that the resumed run has whole blocks left to run."""
+    from federated_pytorch_test_tpu_torch.train.faults import FaultSpec
+
+    for seed in range(1000):
+        sp = FaultSpec.parse(f"preempt={p},seed={seed}")
+        fires = [ci * nadmm + n for ci in range(L) for n in range(nadmm)
+                 if sp.round_preempt(0, ci, n)]
+        if fires and fires[0] % nadmm > 0 and nadmm <= fires[0] < \
+                (L - 1) * nadmm:
+            return seed, fires[0]
+    fail("no fault seed preempts inside a block")
+
+
+def child_main(spec_json: str) -> None:
+    """Phase 25's child: one deterministic driver run (cuBLAS workspace and
+    ``torch.use_deterministic_algorithms`` set before the first handle),
+    its history pickled beside the checkpoints; exit 3 on the simulated
+    preemption, with the round it hit."""
+    import pickle
+
+    spec = json.loads(spec_json)
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    import torch
+
+    torch.use_deterministic_algorithms(True)
+    sys.path.insert(0, ROOT)
+    from federated_pytorch_test_tpu_torch.drivers import consensus_multi
+    from federated_pytorch_test_tpu_torch.parallel.mesh import (
+        CollectiveTimeoutError,
+    )
+
+    out = os.path.join(spec["dir"], spec["tag"] + ".pkl")
+    try:
+        _, _, history = consensus_multi.main(spec["argv"],
+                                             log=lambda m: None)
+    except CollectiveTimeoutError as e:
+        with open(out, "wb") as f:
+            pickle.dump({"preempted": e.round_index}, f)
+        sys.exit(3)
+    with open(out, "wb") as f:
+        pickle.dump({"history": history}, f)
+
+
+def run_preempt_resume() -> None:
+    """Phase 25: preemption and resume in child processes, bit for bit."""
+    import pickle
+    import shutil
+    import tempfile
+
+    import torch
+
+    from federated_pytorch_test_tpu_torch.utils import checkpoint as ckpt
+
+    L = 5                                     # Net's blocks
+    seed, at = preempt_schedule(L, PREEMPT_NADMM, PREEMPT_P)
+    log(f"preempt: seed {seed}, p {PREEMPT_P}: the preemption fires at "
+        f"round {at} (block {at // PREEMPT_NADMM}, nadmm "
+        f"{at % PREEMPT_NADMM})")
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="preempt-", dir=os.path.join(ROOT, "build"))
+    timing = {"round_seconds", "stage_seconds", "train_seconds",
+              "comm_seconds", "ckpt_write_seconds"}
+
+    def start(tag, spec, extra=()):
+        d = os.path.join(work, spec)
+        faults = "drop=0.1" + (f",preempt={PREEMPT_P}" if spec != "ref"
+                               else "")
+        argv = [*PREEMPT_ARGV, "--checkpoint-dir", d, "--fault-spec",
+                f"{faults},seed={seed}", *extra]
+        proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--phase25-child",
+             json.dumps({"argv": argv, "dir": work, "tag": tag})],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        return tag, proc, time.perf_counter()
+
+    def finish(started):
+        tag, proc, t0 = started
+        try:
+            out, err = proc.communicate(timeout=600)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+        log(f"preempt: child {tag} exit {proc.returncode} in "
+            f"{time.perf_counter() - t0:.2f} s")
+        if proc.returncode not in (0, 3):
+            log(out[-4000:])
+            log(err[-4000:])
+            fail(f"phase 25's child {tag} failed")
+        with open(os.path.join(work, tag + ".pkl"), "rb") as f:
+            return proc.returncode, pickle.load(f)
+
+    def child(tag, spec, extra=()):
+        return finish(start(tag, spec, extra))
+
+    def strip(h):
+        out = []
+        for r in h:
+            r = {k: v for k, v in r.items() if k not in timing}
+            r["accuracy"] = r["accuracy"].tolist()
+            out.append(r)
+        return out
+
+    def final(spec):
+        tree, meta = ckpt.load_checkpoint(
+            os.path.join(work, spec, "consensus_multi"))
+        return tree, meta
+
+    reference = None
+    try:
+        # the reference runs beside the preempted child and its resume
+        reference = start("reference", "ref")
+        rc, got = child("preempted", "run")
+        if rc != 3 or got.get("preempted") != at:
+            fail(f"child 1 ended {rc} {got}, not preempted at round {at}")
+        slots = ckpt.checkpoint_slots(os.path.join(work, "run",
+                                                   "consensus_multi_midrun"))
+        log(f"preempt: child 1 preempted at round {at}; slots {slots}")
+        rc, resumed = child("resumed", "run", ["--load-model"])
+        _, ref = finish(reference)
+        hr, h1 = strip(ref["history"]), strip(resumed["history"])
+        tr, mr = final("ref")
+        t1, m1 = final("run")
+        same = (hr == h1 and mr == m1 and tr.keys() == t1.keys()
+                and all(torch.equal(tr[k], t1[k]) for k in tr))
+        log(f"preempt: resumed run vs reference: {len(h1)} and {len(hr)} "
+            f"records, {len(t1)} and {len(tr)} tensors, bit for bit {same}")
+        if not same:
+            fail("the resumed run is not bit for bit the reference run")
+        # damage the newest mid-run slot: resume falls back to the older
+        # one, re-runs the last round and still ends equal
+        newest = ckpt.checkpoint_slots(os.path.join(
+            work, "run", "consensus_multi_midrun"))[0]
+        with open(os.path.join(newest, ckpt.CHECKSUM_FILE), "w") as f:
+            f.write("0" * 64 + "\n")
+        rc, fallback = child("fallback", "run", ["--load-model"])
+        t2, m2 = final("run")
+        hf = strip(fallback["history"])
+        same = (hf == hr and m2 == mr
+                and all(torch.equal(tr[k], t2[k]) for k in tr))
+        log(f"preempt: after damaging {os.path.basename(newest)}'s checksum "
+            f"the resume from the older slot ends bit for bit equal: {same}")
+        if not same:
+            fail("the fallback resume is not bit for bit the reference run")
+    finally:
+        if reference is not None and reference[1].poll() is None:
+            reference[1].kill()
+            reference[1].wait()
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main() -> None:
     import torch
 
@@ -1883,6 +2600,11 @@ def main() -> None:
     run_accuracy_comparison()
     run_vae("federated_vae", dev)
     run_vae("federated_vae_cl", dev)
+    gram_launches += run_krum_attack(dev)
+    for k, v in run_async_churn(dev).items():
+        quant_launches[k] += v
+    run_population(dev)
+    run_preempt_resume()
     log(f"summary: krum's selection on the raw y + rho*x stack, kernel vs "
         f"gram_plain: {raw_krum}")
 
@@ -1924,4 +2646,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--phase25-child"]:
+        child_main(sys.argv[2])
+    else:
+        main()

@@ -14,5 +14,8 @@ over a logical client mesh and krum's Gram kernel (``csrc/gram.cu``),
 driven by ``drivers/consensus_multi.py``; and the compressed exchange of
 that round (``compress/`` q8/q4 with error feedback) with the fused
 quantized collective (``ops/packed_reduce.py``) and its quantize and
-dequantize-accumulate kernels (``csrc/quant.cu``).
+dequantize-accumulate kernels (``csrc/quant.cu``); the other classifier
+drivers and the VAEs; and the robustness shell of a round
+(``train/rounds.py``, ``train/faults.py``, ``population/``) with the
+mid-run checkpoint and resume (``utils/checkpoint.py``).
 """

@@ -2,18 +2,23 @@
 and the VAEs).
 
 Port of ``federated_pytorch_test_tpu/drivers/common.py`` without
-supervision, campaigns, checkpoints or telemetry: flags (the JAX knob
-names of every ``FederatedConfig`` field the port has, plus ``--device``,
-``--n-train`` and ``--n-test``), the data partition, the model choice and
-the engine.  A driver may hand in its own trainer class, model and extra
-flags, and refuses the flags of what it fixes.  A knob of the JAX driver that the port does not have yet is
-refused by name instead of being ignored.
+supervision, campaigns or telemetry: flags (the JAX knob names of every
+``FederatedConfig`` field the port has, plus ``--device``, ``--n-train``
+and ``--n-test``), the data partition, the model choice, the engine and
+its checkpoints (``--midrun-checkpoint`` saves after every round under
+``<checkpoint-dir>/<prog>_midrun``, ``--load-model`` resumes that slot or
+else loads the end-of-run ``<checkpoint-dir>/<prog>``, which the run saves
+unless ``--no-save-model``).  A driver may hand in its own trainer class,
+model and extra flags, and refuses the flags of what it fixes.  A knob of
+the JAX driver that the port does not have yet is refused by name instead
+of being ignored.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 from typing import Callable, Optional, Type
 
 import torch
@@ -23,9 +28,12 @@ from federated_pytorch_test_tpu_torch.data.cifar10 import FederatedCifar10
 from federated_pytorch_test_tpu_torch.models.resnet import ResNet9, ResNet18
 from federated_pytorch_test_tpu_torch.models.simple import Net, Net1, Net2
 from federated_pytorch_test_tpu_torch.parallel.comm import ROBUST_AGG_CHOICES
+from federated_pytorch_test_tpu_torch.population.sampler import SAMPLER_CHOICES
 from federated_pytorch_test_tpu_torch.train.algorithms import Algorithm
 from federated_pytorch_test_tpu_torch.train.config import FederatedConfig
 from federated_pytorch_test_tpu_torch.train.engine import BlockwiseFederatedTrainer
+from federated_pytorch_test_tpu_torch.utils import checkpoint as ckpt
+from federated_pytorch_test_tpu_torch.utils.tree import leaves, tree_map
 
 _MODELS = {"net": Net, "net1": Net1, "net2": Net2,
            "resnet9": ResNet9, "resnet18": ResNet18}
@@ -34,12 +42,9 @@ MODEL_CHOICES = ("auto",) + tuple(_MODELS)
 #: flags of the JAX classifier drivers whose features the port does not
 #: have yet (ROADMAP.md): given on the command line, they raise
 UNPORTED = (
-    "participation", "population", "fault-spec", "campaign-spec",
-    "update-guard", "async-rounds", "fused-rounds", "overlap-staging",
-    "overlap-round", "sharded-update", "device-data",
-    "load-model", "midrun-checkpoint", "async-checkpoint", "max-restarts",
-    "obs-dir", "obs-sinks", "control", "serve-spec", "profile-dir",
-    "be-verbose")
+    "campaign-spec", "fused-rounds", "overlap-staging", "overlap-round",
+    "sharded-update", "device-data", "max-restarts", "obs-dir",
+    "obs-sinks", "control", "serve-spec", "profile-dir", "be-verbose")
 
 #: parse_config's default of a ``fixed`` field, to tell it from a given one
 _FIXED = object()
@@ -68,6 +73,8 @@ def build_parser(defaults: FederatedConfig, prog: str) -> argparse.ArgumentParse
             p.add_argument(arg, choices=COMPRESS_CHOICES, default=default)
         elif f.name == "model":
             p.add_argument(arg, choices=MODEL_CHOICES, default=default)
+        elif f.name == "cohort_sampling":
+            p.add_argument(arg, choices=SAMPLER_CHOICES, default=default)
         elif default is None:
             p.add_argument(arg, type=optional_types[f.name], default=None)
         else:
@@ -135,6 +142,46 @@ def make_trainer(cfg: FederatedConfig, algorithm: Algorithm,
                        data, algorithm)
 
 
+def checkpoint_path(cfg: FederatedConfig, name: str) -> str:
+    return os.path.join(cfg.checkpoint_dir, name)
+
+
+def maybe_load(trainer: BlockwiseFederatedTrainer, name: str, log=print):
+    """The run's start: with ``--load-model`` and an end-of-run checkpoint
+    ``<checkpoint_dir>/<name>`` on disk, its params and batch statistics
+    (as the JAX driver: model variables only); else the common init."""
+    cfg = trainer.cfg
+    state = trainer.init_state()
+    path = checkpoint_path(cfg, name)
+    if cfg.load_model and os.path.isdir(os.path.abspath(
+            os.path.expanduser(path))):
+        tree, meta = ckpt.load_checkpoint(path)
+        to = lambda t: tree_map(lambda v: v.to(trainer.device), t)
+        state = state._replace(
+            params=to(ckpt.unflatten_dict(tree, "params/")),
+            batch_stats=to(ckpt.unflatten_dict(tree, "batch_stats/")))
+        log(f"loaded checkpoint <- {path} "
+            f"(rounds={int(meta.get('rounds', 0))})")
+    return state
+
+
+def finish(trainer: BlockwiseFederatedTrainer, state, name: str, history,
+           log=print) -> None:
+    """The end-of-run checkpoint ``<checkpoint_dir>/<name>`` (unless
+    ``--no-save-model``): params, batch statistics and the last block's
+    optimizer state, with the round count."""
+    cfg = trainer.cfg
+    if not cfg.save_model:
+        return
+    tree = {**ckpt.flatten_dict(state.params, "params/"),
+            **ckpt.flatten_dict(state.batch_stats, "batch_stats/")}
+    for i, leaf in enumerate(leaves(state.opt_state)):
+        tree[f"opt/{i}"] = torch.as_tensor(leaf)
+    path = checkpoint_path(cfg, name)
+    ckpt.save_checkpoint(path, tree, {"rounds": len(history)})
+    log(f"saved checkpoint -> {path}")
+
+
 def run_classifier_driver(prog: str, defaults: FederatedConfig,
                           algorithm: Algorithm, independent: bool = False,
                           argv=None, log=print):
@@ -148,7 +195,9 @@ def run_driver(prog: str, trainer: BlockwiseFederatedTrainer,
                independent: bool = False, log=print):
     """Run the driver ``prog``'s trainer; returns (trainer, state,
     history).  ``independent``: the no-consensus baseline
-    (``run_independent``)."""
+    (``run_independent``).  The mid-run checkpoint (``--midrun-checkpoint``)
+    lives at ``<checkpoint_dir>/<prog>_midrun``; ``--load-model`` resumes
+    it, else starts from the end-of-run checkpoint (:func:`maybe_load`)."""
     cfg = trainer.cfg
     mname = type(trainer.model).__name__
     if mname == "ResNet":
@@ -156,7 +205,15 @@ def run_driver(prog: str, trainer: BlockwiseFederatedTrainer,
     log(f"{prog}: K={cfg.K} model={mname} devices={trainer.D} "
         f"clients/device={trainer.K_local} data={trainer.data.source} "
         f"device={trainer.device}")
-    run = trainer.run_independent if independent else trainer.run
-    state, history = run(log=log)
+    state = maybe_load(trainer, prog, log)
+    if independent:
+        state, history = trainer.run_independent(state, log=log)
+    else:
+        ck = (checkpoint_path(cfg, prog + "_midrun")
+              if cfg.midrun_checkpoint else None)
+        state, history = trainer.run(
+            state, log=log, checkpoint_path=ck,
+            resume=cfg.load_model and ck is not None)
+    finish(trainer, state, prog, history, log)
     log("Finished Training")
     return trainer, state, history

@@ -25,9 +25,20 @@ the JAX package lacks.
 
 from __future__ import annotations
 
-from typing import Any, List, Sequence, Tuple
+from typing import Any, List, Optional, Sequence, Tuple
 
 import torch
+
+
+class CollectiveTimeoutError(RuntimeError):
+    """A collective or barrier exceeded its bounded wait: the signature of
+    a peer lost to preemption.  The port runs one process, so only the
+    simulated preemption of the ``preempt=`` fault family raises it
+    (``train/rounds.py``); ``round_index`` names the round it hit."""
+
+    def __init__(self, message: str, round_index: Optional[int] = None):
+        super().__init__(message)
+        self.round_index = round_index
 
 
 class ClientMesh:

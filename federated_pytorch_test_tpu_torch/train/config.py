@@ -3,7 +3,8 @@
 The subset of ``federated_pytorch_test_tpu/train/config.py``'s
 ``FederatedConfig`` that the ported paths read (the CPC trainer and the
 classifier drivers: FedAvg, FedProx, ADMM consensus and the no-consensus
-baseline, with the robust or compressed exchange and Adam or L-BFGS),
+baseline, with the robust or compressed exchange and Adam or L-BFGS, the
+robustness shell of a round and its checkpoints),
 with the JAX package's defaults, plus the
 device the run uses.  A knob of the JAX package that is missing here is not
 ported yet (``ROADMAP.md``); the drivers refuse it by name.
@@ -59,6 +60,26 @@ class FederatedConfig:
     lr: float = 1e-3
     lbfgs_history_size: int = 10
     lbfgs_max_iter: int = 4
+
+    # the robustness shell of a round (train/rounds.py)
+    participation: float = 1.0     # per-round client sampling probability
+    population: int = 0            # registered clients (0: off; >= K)
+    cohort_sampling: str = "uniform"  # uniform|weighted|stratified
+    cohort_frac: float = 1.0       # share of the K cohort slots active
+    fault_spec: str = "none"       # train/faults.py grammar
+    update_guard: bool = False     # finite + norm-bound check of updates
+    guard_norm_mult: float = 10.0  # bound: this x the running accepted norm
+    quarantine_rounds: int = 1     # rounds a rejected client sits out
+    async_rounds: bool = False     # buffered asynchronous rounds
+    max_staleness: int = 4         # admission cutoff, in comm rounds
+    staleness_alpha: float = 0.5   # weight (1 + staleness)^-alpha
+
+    # checkpoints (utils/checkpoint.py; drivers/common.py)
+    checkpoint_dir: str = "./checkpoints"
+    midrun_checkpoint: bool = False  # save after every comm round
+    async_checkpoint: bool = False   # ... on a writer thread
+    load_model: bool = False       # resume the mid-run slot / end-of-run params
+    save_model: bool = True        # end-of-run checkpoint
 
     data_dir: Optional[str] = None  # CIFAR-10 pickle batches (else synthetic)
     drop_last_sample: bool = True  # reference off-by-one parity

@@ -3,11 +3,12 @@ the classifiers and (through ``train/vae_engine.py``) the VAEs, and the
 no-consensus baseline.
 
 Port of ``BlockwiseFederatedTrainer`` of
-``federated_pytorch_test_tpu/train/engine.py`` with every knob off apart
-from the robust aggregation (``robust_agg``, ``robust_chunked``), the
-compressed exchange (``compress`` q8/q4/topk, ``error_feedback``,
-``fused_collective``) and the local optimizer (``optimizer`` adam or
-lbfgs).  The loop nest of the reference is kept::
+``federated_pytorch_test_tpu/train/engine.py`` with the robust
+aggregation (``robust_agg``, ``robust_chunked``), the compressed exchange
+(``compress`` q8/q4/topk, ``error_feedback``, ``fused_collective``), the
+local optimizer (``optimizer`` adam or lbfgs), the robustness shell of a
+round and the mid-run checkpoint; the throughput knobs (device-resident
+data, fused rounds, overlap, sharded update) are not ported.  The loop nest of the reference is kept::
 
     Nloop (sweeps over the net) -> L blocks -> Nadmm (comm rounds)
       -> Nepoch (local epochs) -> K clients -> minibatches
@@ -43,6 +44,19 @@ and minibatch step, a pure function of ``(cfg.seed, epoch counter, client,
 step)`` through :attr:`BlockwiseFederatedTrainer.normal`; every closure
 evaluation of that step's L-BFGS line search sees the same draw, as the
 JAX engine fixes ``fold_in(key, step)`` for the whole step.
+
+The robustness shell of a round is the JAX engine's (``RoundKernel``,
+``train/rounds.py``): partial participation, injected faults (drop,
+straggle, corrupt at the encode boundary, transit delay, churn,
+preemption), the update guard with quarantine, buffered async rounds and
+population cohorts.  Any of them makes the round *partial*: the local
+epoch skips the clients out of training (the JAX engine computes them and
+discards the result, so the numbers are the same), the exchange weights
+clients by the round's activity vector, and only its participants receive
+z.  Adam's step count is kept per client, as optax's under the JAX
+engine's ``vmap``.  ``run(checkpoint_path=...)`` saves a mid-run checkpoint
+after every round and ``resume=True`` continues from the newest usable
+slot (``utils/checkpoint.py``), bit for bit the uninterrupted run.
 """
 
 from __future__ import annotations
@@ -82,15 +96,24 @@ from federated_pytorch_test_tpu_torch.train.algorithms import (
     bb_rho_update,
 )
 from federated_pytorch_test_tpu_torch.train.config import FederatedConfig
+from federated_pytorch_test_tpu_torch.train.faults import apply_corruption
 from federated_pytorch_test_tpu_torch.train.losses import (
     accuracy_count,
     cross_entropy,
     l1_l2,
 )
+from federated_pytorch_test_tpu_torch.train.rounds import RoundKernel
 from federated_pytorch_test_tpu_torch.utils import blocks as blocklib
+from federated_pytorch_test_tpu_torch.utils import checkpoint as ckpt
 from federated_pytorch_test_tpu_torch.utils import codec
 from federated_pytorch_test_tpu_torch.utils.device import resolve_device
-from federated_pytorch_test_tpu_torch.utils.tree import tree_map, tree_stack
+from federated_pytorch_test_tpu_torch.utils.tree import (
+    leaves,
+    map_leaves,
+    tree_map,
+    tree_stack,
+    unflatten_like,
+)
 
 #: optax.adam's defaults
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
@@ -124,11 +147,13 @@ class ClientState(NamedTuple):
 
 
 class AdamState(NamedTuple):
-    """optax.adam's state over the active block's flat vectors."""
+    """optax.adam's state over the active block's flat vectors, one step
+    count per client (optax's under the JAX engine's ``vmap``): a client
+    that sits a round out keeps its moments and its count."""
 
     mu: torch.Tensor       # [K, N]
     nu: torch.Tensor       # [K, N]
-    count: int
+    count: torch.Tensor    # [K] int64, on the host (read a step, no sync)
 
 
 def adam_step(x, g, mu, nu, count: int, lr: float):
@@ -156,11 +181,22 @@ def _normalize_u8(x_u8: torch.Tensor, norm: torch.Tensor) -> torch.Tensor:
     return ((x - norm[0]) / norm[1]).permute(0, 3, 1, 2)
 
 
-class BlockwiseFederatedTrainer:
+def _sel(active: torch.Tensor, new, old):
+    """Per-leaf ``where(active_k > 0, new, old)`` over the client axis: the
+    rows of inactive clients stay bit-untouched."""
+    def pick(a, b):
+        if a is b:
+            return a
+        m = active.to(a.device).reshape((-1,) + (1,) * (a.dim() - 1)) > 0
+        return torch.where(m, a, b)
+    return map_leaves(pick, new, old)
+
+
+class BlockwiseFederatedTrainer(RoundKernel):
     """The engine of the consensus, FedAvg, FedProx and no-consensus
-    drivers, on its default path (knobs off) with optional robust
-    aggregation, compressed exchange or L-BFGS.  The VAE trainers subclass
-    it and override the workload hooks."""
+    drivers, with optional robust aggregation, compressed exchange,
+    L-BFGS and the robustness shell of ``train/rounds.py``.  The VAE
+    trainers subclass it and override the workload hooks."""
 
     #: "blocks" sweeps train_order_block_ids() (federated_multi.py:145-147);
     #: "layers" sweeps (weight, bias) pairs, the VAE driver's
@@ -208,6 +244,9 @@ class BlockwiseFederatedTrainer:
         self.compressor = make_compressor(
             cfg.compress, topk_frac=cfg.topk_frac,
             quant_chunk=cfg.quant_chunk, error_feedback=cfg.error_feedback)
+        # the round kernel: fault spec, ledgers (train/rounds.py)
+        self._init_round_kernel()
+        self._ckpt_writer = None
         if cfg.fused_collective and self.compressor.name == "none":
             raise ValueError(
                 "fused_collective requires a compressed wire format "
@@ -237,6 +276,7 @@ class BlockwiseFederatedTrainer:
                 cfg.robust_agg, trim_frac=cfg.trim_frac,
                 clip_mult=cfg.clip_mult, chunked=cfg.robust_chunked,
                 mesh=self.mesh)
+        self._validate_round_cfg()
 
         # common init: every client starts from the same weights (drawn on
         # a CPU generator, so they do not depend on the device)
@@ -268,8 +308,11 @@ class BlockwiseFederatedTrainer:
         self.test_y = torch.from_numpy(yt).to(self.device)
         self.test_w = torch.from_numpy(wt).to(self.device)
         self.test_n = int(wt.sum())
-        self.client_norm = torch.from_numpy(
-            np.asarray(data.norm_stats, np.float32)).to(self.device)
+        # the host copy serves population mode: slot k's normalisation
+        # follows the cohort's data shard (rid % K)
+        self._client_norm_host = np.asarray(data.norm_stats, np.float32)
+        self.client_norm = torch.from_numpy(self._client_norm_host).to(
+            self.device)
 
         self._epochs_staged = 0
         self._pending: Optional[tuple] = None
@@ -319,20 +362,48 @@ class BlockwiseFederatedTrainer:
         if self.optimizer_for_block(ci) == "adam":
             f32 = dict(dtype=torch.float32, device=self.device)
             return AdamState(torch.zeros(self.cfg.K, N, **f32),
-                             torch.zeros(self.cfg.K, N, **f32), 0)
+                             torch.zeros(self.cfg.K, N, **f32),
+                             torch.zeros(self.cfg.K, dtype=torch.int64))
         X = codec.get_trainable_stack(params, self.order,
                                       self.mask_for_block(ci))
         return [self.lbfgs.init(x) for x in X]
 
-    def _init_comp_state(self, ci: int):
+    def _init_comp_state(self, ci: int, device=None):
         """Fresh [K]-stacked compressor state for block ``ci`` (or None),
-        seeded per (cfg.seed, block) as in the JAX engine."""
+        seeded per (cfg.seed, block) as in the JAX engine, on ``device``
+        (default the trainer's)."""
         if self.compressor.name == "none":
             return None
         seed = int(np.random.default_rng(
             [self.cfg.seed, 23, ci]).integers(2**31))
         return stacked_init(self.compressor, self.cfg.K, self.block_size(ci),
-                            seed, self.device)
+                            seed, device or self.device)
+
+    def _population_swap_comp(self, comp, ci: int):
+        """Move the [K]-stacked compressor/EF rows to this round's cohort:
+        stash the previous cohort's rows in the registry, then give each
+        slot its new member's stored row (if sampled before in this block)
+        or the block's fresh row for that slot.  So an EF residual follows
+        the registry client, not the slot."""
+        reg, cohort = self._registry, self._cohort
+        if (self._pop_comp_prev is not None
+                and np.array_equal(self._pop_comp_prev, cohort)):
+            return comp
+        if self._pop_comp_prev is None and reg.comp_rows == 0:
+            # first round of the block: the live state is the fresh init
+            self._pop_comp_prev = cohort.copy()
+            return comp
+        cur = [t.detach().cpu().numpy() for t in leaves(comp)]
+        stacked = [a.ndim >= 1 and a.shape[0] == self.cfg.K for a in cur]
+        if self._pop_comp_prev is not None:
+            reg.stash_comp_rows(self._pop_comp_prev, cur, stacked)
+        fresh = [t.numpy()
+                 for t in leaves(self._init_comp_state(ci, "cpu"))]
+        out = reg.load_comp_rows(cohort, fresh, stacked)
+        out = [o if is_k else c for o, c, is_k in zip(out, cur, stacked)]
+        self._pop_comp_prev = cohort.copy()
+        return unflatten_like(comp, [torch.from_numpy(np.array(o))
+                                     for o in out])
 
     def init_state(self) -> ClientState:
         """A fresh training state: a copy of the common init."""
@@ -365,16 +436,35 @@ class BlockwiseFederatedTrainer:
         if self._stage_pool is not None and not last:
             self._pending = (c + 1,
                              self._stage_pool.submit(self._host_epoch, c + 1))
+        if self._pop_active and self._cohort is not None:
+            # population: slot k trains on registry client cohort[k]'s shard
+            # (rid % K), applied here, after the counter-keyed prefetch
+            rows = (self._cohort % self.cfg.K).astype(np.int64)
+            xb, yb, wb = xb[rows], yb[rows], wb[rows]
         dev = self.device
         return (torch.from_numpy(xb).to(dev), torch.from_numpy(yb).to(dev),
                 torch.from_numpy(wb).to(dev))
 
     def close(self) -> None:
-        """Release the stage pool (a pending prefetch is dropped)."""
+        """Release the stage pool (a pending prefetch is dropped) and drain
+        the async checkpoint writer, so an aborted run's last submitted
+        round is still on disk; a write failure here does not mask the
+        exception that ended the run (a normal exit re-raises it)."""
         self._pending = None
         if self._stage_pool is not None:
             self._stage_pool.shutdown(wait=True)
             self._stage_pool = None
+        try:
+            self._flush_ckpt_writer()
+        except Exception:
+            pass
+
+    def _flush_ckpt_writer(self) -> None:
+        """Write barrier: wait for queued async saves, retire the writer
+        (re-raises a background failure)."""
+        writer, self._ckpt_writer = self._ckpt_writer, None
+        if writer is not None:
+            writer.close()
 
     # ------------------------------------------------------------------
     # the local epoch and the comm step
@@ -399,27 +489,41 @@ class BlockwiseFederatedTrainer:
         return cross_entropy(logits, yb, wb), new_bs
 
     def train_epoch(self, state: ClientState, ci: Optional[int], y, z, rho,
-                    xb, yb, wb, counter: int = 0):
+                    xb, yb, wb, counter: int = 0, active=None, norm=None):
         """One local epoch (number ``counter``, which keys the noise) of
         every client on block ``ci`` (``None``: the whole net); returns the
-        new state and the [K] per-client sums of the step losses."""
+        new state and the [K] per-client sums of the step losses.
+        ``active`` (numpy [K], None: every client): the clients that train;
+        the others keep their parameters, statistics and optimizer state
+        bit for bit and their loss reads 0.  ``norm``: the [K, 2, 3]
+        normalisation of the slots (default the clients' own)."""
         cfg, algo = self.cfg, self.algo
         order, mask = self.order, self.mask_for_block(ci)
         lam1, lam2 = self.reg_for_block(ci)
         reg_on = lam1 != 0.0 or lam2 != 0.0
         lbfgs = self.optimizer_for_block(ci) == "lbfgs"
         lr = self.lr_for_block(ci)
+        norm = self.client_norm if norm is None else norm
         opt = state.opt_state
         X = codec.get_trainable_stack(state.params, order, mask)
         xs, opts, bss, losses = [], [], [], []
+        steps = xb.shape[1]
+        zero = torch.zeros((), dtype=torch.float32, device=self.device)
         for k in range(cfg.K):
-            pk = tree_map(lambda t: t[k], state.params)
             bsk = tree_map(lambda t: t[k], state.batch_stats)
             xk = X[k]
             ok = opt[k] if lbfgs else (opt.mu[k], opt.nu[k])
+            if active is not None and not active[k] > 0:
+                xs.append(xk)
+                opts.append(ok)
+                bss.append(bsk)
+                losses.append(zero)
+                continue
+            pk = tree_map(lambda t: t[k], state.params)
+            count0 = 0 if lbfgs else int(opt.count[k])
             step_losses = []
-            for step in range(xb.shape[1]):
-                xn = _normalize_u8(xb[k, step], self.client_norm[k])
+            for step in range(steps):
+                xn = _normalize_u8(xb[k, step], norm[k])
                 # one draw a step: the line search's evaluations share it
                 noise = self.noise((cfg.seed, counter, k, step),
                                    xb.shape[2])
@@ -444,7 +548,7 @@ class BlockwiseFederatedTrainer:
                     (g,) = torch.autograd.grad(loss, v)
                     with torch.no_grad():
                         xk, mu, nu = adam_step(xk, g, *ok,
-                                               opt.count + step + 1, lr)
+                                               count0 + step + 1, lr)
                     ok = (mu, nu)
                 step_losses.append(loss.detach())
             xs.append(xk)
@@ -455,9 +559,11 @@ class BlockwiseFederatedTrainer:
                                            torch.stack(xs))
         batch_stats = tree_stack(bss) if self.has_bn else state.batch_stats
         if not lbfgs:
+            ran = (torch.ones(cfg.K, dtype=torch.int64) if active is None
+                   else torch.from_numpy(np.asarray(active) > 0).long())
             opts = AdamState(torch.stack([m for m, _ in opts]),
                              torch.stack([n for _, n in opts]),
-                             opt.count + xb.shape[1])
+                             opt.count + steps * ran)
         return (ClientState(params, batch_stats, opts, state.comp),
                 torch.stack(losses))
 
@@ -472,21 +578,70 @@ class BlockwiseFederatedTrainer:
         return "plain"
 
     def comm_round(self, state: ClientState, ci: int, z, y, rho, x0, yhat0,
-                   mode: str = "plain"):
-        """The full-participation communication round of block ``ci``."""
+                   mode: str = "plain", active=None, corrupt=None,
+                   gbound=None):
+        """The communication round of block ``ci``.  On a partial round
+        (``self._partial``) ``active`` is the [K] activity vector (0/1, or
+        the async staleness weights), ``corrupt`` the [K] 0/1 corruption
+        indicator and ``gbound`` the guard's norm bound; the three are
+        ignored on the full-participation round.  Returns (state, z, y,
+        rho, x0, yhat0, diag, okf): ``okf`` the [K] guard verdicts (None
+        with the guard off)."""
         cfg = self.cfg
+        K = cfg.K
         order, mask = self.order, self.mask_for_block(ci)
+        partial = self._partial
+        guard_on = cfg.update_guard
+        dev = z.device
+        if partial:
+            active = torch.as_tensor(np.asarray(active, np.float32),
+                                     device=dev)
         x = codec.get_trainable_stack(state.params, order, mask)
+        if partial and self.faults.enabled and self.faults.corrupt > 0:
+            # the wire delta is poisoned before compression, where a faulty
+            # client corrupts a real deployment; the EF residual sees it
+            c = torch.as_tensor(np.asarray(corrupt, np.float32), device=dev)
+            x = z[None, :] + apply_corruption(
+                x - z[None, :], c, self.faults.mode, self.faults.scale,
+                w=active, mesh=self.mesh)
         comp = state.comp
         mean_fn = self.mean_fn
         if self.compressor.name != "none":
             # uplink-compress the deltas x_k - z: every update below (mean,
             # duals, BB) runs on the reconstructions the server sees
-            payload, comp = self.compressor.encode(x - z[None, :], comp)
+            payload, comp_new = self.compressor.encode(x - z[None, :], comp)
             if self._fused_coll and self.compressor.sparse:
                 # the k-sized payloads go over the wire themselves
-                mean_fn = make_sparse_fused_mean(payload, z, cfg.K, self.mesh)
+                mean_fn = make_sparse_fused_mean(payload, z, K, self.mesh)
             x = z[None, :] + decode_stack(payload, self.compressor, x.shape[1])
+            if partial and comp is not None:
+                # a non-participant's stream and residual stay untouched
+                comp_new = _sel(active, comp_new, comp)
+            comp = comp_new
+        w = active if partial else None
+        okf = None
+        if guard_on:
+            # every incoming delta must be finite and within the bound;
+            # selects only, so no NaN reaches the aggregation
+            d = x - z[None, :]
+            finite = torch.isfinite(d).all(dim=1)
+            nrm = torch.linalg.vector_norm(
+                torch.where(finite[:, None], d, torch.zeros_like(d)), dim=1)
+            bound = torch.as_tensor(np.float32(gbound), device=dev)
+            okf = (finite & (nrm <= bound)).to(torch.float32)
+            w = active * okf
+            psum = lambda v: self.mesh.psum([s.sum() for s in
+                                             self.mesh.shards(v)])
+            n_ok = psum(w)
+            n_trip = psum(active * (1.0 - okf))
+            norm_mean = psum(w * nrm) / torch.clamp(n_ok, min=1.0)
+            # rejected rows are neutralised to z
+            x = torch.where(okf[:, None] > 0, x, z[None, :])
+            if comp is not None and self.compressor.name != "none":
+                # a rejected round's residual came from the rejected delta:
+                # reset it, keep the stream state
+                comp = _sel(1.0 - active * (1.0 - okf), comp,
+                            self.compressor.reset_state(comp))
         if mode == "bb_store":
             x0 = x
         elif mode == "bb":
@@ -495,13 +650,24 @@ class BlockwiseFederatedTrainer:
                 BBConfig(cfg.bb_period_T, cfg.bb_alphacorrmin,
                          cfg.bb_epsilon, cfg.bb_rhomax))
         znew, ynew, diag = self.algo.global_update(
-            x, z, y, rho, cfg.K, self.mesh, w=None, mean_fn=mean_fn)
+            x, z, y, rho, K, self.mesh, w=w, mean_fn=mean_fn)
+        if guard_on:
+            # an all-rejected round keeps z
+            znew = torch.where(n_ok > 0, znew, z)
+            diag["guard_trips"] = n_trip
+            diag["guard_norm_mean"] = norm_mean
+            diag["n_ok"] = n_ok
         params = state.params
         if self.algo.writeback:
-            params = codec.put_trainable_stack(
-                params, order, mask, znew.unsqueeze(0).expand(cfg.K, -1))
+            wrote = codec.put_trainable_stack(
+                params, order, mask, znew.unsqueeze(0).expand(K, -1))
+            # only the round's accepted participants receive z
+            params = _sel(w, wrote, params) if partial else wrote
+        if partial:
+            diag["n_active"] = self.mesh.psum(
+                [s.sum() for s in self.mesh.shards(active)])
         return (ClientState(params, state.batch_stats, state.opt_state, comp),
-                znew, ynew, rho, x0, yhat0, diag)
+                znew, ynew, rho, x0, yhat0, diag, okf)
 
     def eval_batch_metric(self, p, bs, xb, yb, wb):
         """One test batch's metric, summed over the evaluation (classifier:
@@ -548,36 +714,190 @@ class BlockwiseFederatedTrainer:
             torch.cuda.synchronize(self.device)
 
     def run(self, state: Optional[ClientState] = None,
-            log: Callable[[str], None] = print):
+            log: Callable[[str], None] = print,
+            checkpoint_path: Optional[str] = None, resume: bool = False):
         """Nloop x blocks x Nadmm rounds; returns (state, history), one
-        record per communication round."""
+        record per communication round.  ``checkpoint_path``: save a
+        mid-run checkpoint after every round; ``resume``: continue from
+        its newest usable slot, if one exists."""
         try:
-            return self._run(state, log)
+            return self._run(state, log, checkpoint_path, resume)
         finally:
             self.close()
 
-    def _run(self, state, log):
+    # ------------------------------------------------------------------
+    # mid-run checkpoint / resume: params, statistics, the block's
+    # optimizer and compressor state, z/y/rho/BB state, the epoch counter
+    # (the whole data-order state) and the kernel's ledgers
+    # ------------------------------------------------------------------
+    def _save_midrun(self, path: str, state: ClientState, blockvars, nxt,
+                     history) -> None:
+        nloop, ci, nadmm = nxt
+        mid_block = nadmm > 0
+        tree = {**ckpt.flatten_dict(state.params, "params/"),
+                **ckpt.flatten_dict(state.batch_stats, "batch_stats/")}
+        if mid_block:       # block vars matter only inside a block
+            for i, leaf in enumerate(leaves(state.opt_state)):
+                tree[f"opt/{i}"] = torch.as_tensor(leaf)
+            for i, leaf in enumerate(leaves(state.comp)):
+                tree[f"comp/{i}"] = leaf
+            tree.update(zip(("z", "y", "rho", "x0", "yhat0"), blockvars))
+        meta = {
+            "nloop": nloop, "ci": ci, "nadmm": nadmm,
+            "mid_block": int(mid_block),
+            # epochs are keyed on this counter: the data-order state
+            "epochs_staged": self._epochs_staged,
+            "history": ckpt.pack_history(history),
+        }
+        meta.update(self._ledger_meta())
+        if self._ckpt_writer is not None:
+            # a host copy now; the writer thread serialises and rotates
+            self._ckpt_writer.submit(path, ckpt.snapshot_to_host(tree), meta)
+        else:
+            ckpt.save_checkpoint_swapped(path, tree, meta)
+
+    def _restore_midrun(self, path: str):
+        tree, meta = ckpt.load_checkpoint(path)
+        # geometry first: a wrong-K or wrong-D slot dies with its own error
+        ckpt.validate_geometry(meta, devices=self.D, processes=1,
+                               K=self.cfg.K)
+        dev = self.device
+        on_dev = lambda t: tree_map(lambda v: v.to(dev), t)
+        params = on_dev(ckpt.unflatten_dict(tree, "params/"))
+        batch_stats = on_dev(ckpt.unflatten_dict(tree, "batch_stats/"))
+        mid = bool(meta["mid_block"])
+        opt = comp = blockvars = None
+        if mid:
+            ci = int(meta["ci"])
+            n_opt = sum(1 for k in tree if k.startswith("opt/"))
+            opt = unflatten_like(self.init_opt(params, ci),
+                                 [tree[f"opt/{i}"] for i in range(n_opt)])
+            comp = self._init_comp_state(ci)
+            if comp is not None:
+                comp = unflatten_like(comp, [tree[f"comp/{i}"] for i in
+                                             range(len(leaves(comp)))])
+            blockvars = tuple(tree[k].to(dev)
+                              for k in ("z", "y", "rho", "x0", "yhat0"))
+        state = ClientState(params, batch_stats, opt, comp)
+        # a pending prefetch whose counter differs is dropped at the next
+        # _stage_epoch (epochs are pure functions of the counter)
+        self._epochs_staged = int(meta["epochs_staged"])
+        self._restore_ledger_meta(meta)
+        history = ckpt.unpack_history(meta["history"])
+        return state, blockvars, (int(meta["nloop"]), int(meta["ci"]),
+                                  int(meta["nadmm"]), mid), history
+
+    @staticmethod
+    def _check_restored_finite(restored) -> None:
+        """Reject a restored snapshot whose params or z/y carry NaN or inf:
+        checksum-valid but a replay of the failure, so the slot walk falls
+        back to the next-older slot."""
+        state, blockvars = restored[0], restored[1]
+        vals = leaves(state.params)
+        if blockvars is not None:
+            vals += [blockvars[0], blockvars[1]]
+        for t in vals:
+            if t.is_floating_point() and not bool(torch.isfinite(t).all()):
+                raise ValueError("restored state carries non-finite values "
+                                 "(poisoned checkpoint)")
+
+    def _resume(self, checkpoint_path: str, log):
+        """Walk the slots newest first; returns the first usable one's
+        restore, or None when there is no slot.  A slot that fails its
+        checksum, its load or the finite screen is skipped; a geometry
+        error is not (every slot has the same geometry)."""
+        failures = []
+        for slot in ckpt.checkpoint_slots(checkpoint_path):
+            try:
+                ckpt.verify_checkpoint(slot)
+                restored = self._restore_midrun(slot)
+                self._check_restored_finite(restored)
+            except ckpt.CheckpointGeometryError:
+                raise
+            except Exception as e:
+                failures.append(f"{slot}: {e}")
+                log(f"WARNING: checkpoint slot {slot} is unusable ({e}); "
+                    "falling back to the previous slot")
+                continue
+            log(f"resumed mid-run checkpoint {slot} at "
+                f"(nloop, block, nadmm)={restored[2][:3]}")
+            return restored
+        if failures:
+            raise ckpt.CheckpointCorruptError(
+                "no valid mid-run checkpoint slot survives: "
+                + "; ".join(failures))
+        return None
+
+    def _run(self, state, log, checkpoint_path=None, resume=False):
         cfg, algo = self.cfg, self.algo
         K, dev = cfg.K, self.device
         state = state or self.init_state()
         history: List[Dict[str, Any]] = []
         f32 = dict(dtype=torch.float32, device=dev)
+        resume_at = r_blockvars = None
+        if resume and checkpoint_path is not None:
+            restored = self._resume(checkpoint_path, log)
+            if restored is not None:
+                state, r_blockvars, resume_at, history = restored
+        # one-shot preemption: a resumed segment replaying the drawn round
+        # must not fire again
+        self._preempt_armed = resume_at is None
+        if cfg.async_checkpoint and checkpoint_path is not None \
+                and self._ckpt_writer is None:
+            self._ckpt_writer = ckpt.AsyncCheckpointWriter()
+        partial = self._partial
         for nloop in range(cfg.Nloop):
             for ci in range(self.L):
+                if resume_at is not None and (nloop, ci) < resume_at[:2]:
+                    continue
                 N = self.block_size(ci)
-                z = torch.zeros(N, **f32)
-                y = torch.zeros(K, N if algo.needs_dual else 1, **f32)
-                rho = torch.tensor(cfg.admm_rho0, **f32)
-                x0 = torch.zeros(K, N if cfg.bb_update else 1, **f32)
-                yhat0 = (codec.get_trainable_stack(
-                    state.params, self.order, self.mask_for_block(ci))
-                    if cfg.bb_update else torch.zeros(K, 1, **f32))
-                state = ClientState(state.params, state.batch_stats,
-                                    self.init_opt(state.params, ci),
-                                    self._init_comp_state(ci))
-                for nadmm in range(cfg.Nadmm):
+                nadmm_start = 0
+                if (resume_at is not None and (nloop, ci) == resume_at[:2]
+                        and resume_at[3]):
+                    # resume inside this block
+                    z, y, rho, x0, yhat0 = r_blockvars
+                    nadmm_start = resume_at[2]
+                    resume_at = None
+                else:
+                    resume_at = None
+                    z = torch.zeros(N, **f32)
+                    y = torch.zeros(K, N if algo.needs_dual else 1, **f32)
+                    rho = torch.tensor(cfg.admm_rho0, **f32)
+                    x0 = torch.zeros(K, N if cfg.bb_update else 1, **f32)
+                    yhat0 = (codec.get_trainable_stack(
+                        state.params, self.order, self.mask_for_block(ci))
+                        if cfg.bb_update else torch.zeros(K, 1, **f32))
+                    state = ClientState(state.params, state.batch_stats,
+                                        self.init_opt(state.params, ci),
+                                        self._init_comp_state(ci))
+                    # a fresh block: fresh guard scale, async updates void
+                    self._reset_block_ledgers()
+                for nadmm in range(nadmm_start, cfg.Nadmm):
                     t_round = time.perf_counter()
                     launches0 = _launch_counts()
+                    self._maybe_preempt(nloop, ci, nadmm, len(history),
+                                        checkpoint_path)
+                    train_m, comm_m, corrupt, comm_host, fcounts = \
+                        self._round_activity(nloop, ci, nadmm)
+                    n_comm = fcounts.pop("n_comm", 1)
+                    cnorm = self.client_norm
+                    if self._pop_active:
+                        # the cohort rotated: move the compressor/EF rows
+                        # and point slot k's normalisation at its shard
+                        if leaves(state.comp):
+                            state = state._replace(
+                                comp=self._population_swap_comp(
+                                    state.comp, ci))
+                        rows = (self._cohort % K).astype(np.int64)
+                        cnorm = torch.from_numpy(
+                            self._client_norm_host[rows]).to(dev)
+                    if (self._churn_live and self._rejoined_mask.any()
+                            and leaves(state.comp)):
+                        # rejoining clients are new clients: fresh rows
+                        state = state._replace(comp=self._reset_comp_rows(
+                            state.comp, ci, self._rejoined_mask))
+                    q_start = (int(np.sum(self._quarantine > 0))
+                               if cfg.update_guard else 0)
                     loss_acc = None
                     stage_s = 0.0
                     for nepoch in range(cfg.Nepoch):
@@ -589,18 +909,32 @@ class BlockwiseFederatedTrainer:
                                   and nepoch == cfg.Nepoch - 1))
                         stage_s += time.perf_counter() - t_stage
                         state, losses = self.train_epoch(
-                            state, ci, y, z, rho, xb, yb, wb, counter)
+                            state, ci, y, z, rho, xb, yb, wb, counter,
+                            active=train_m if partial else None, norm=cnorm)
                         loss_acc = (losses if loss_acc is None
                                     else loss_acc + losses)
                     self._sync()
                     t_comm = time.perf_counter()
                     train_s = t_comm - t_round - stage_s
                     diag: Dict[str, Any] = {}
-                    if algo.communicates:
-                        state, z, y, rho, x0, yhat0, diag = self.comm_round(
-                            state, ci, z, y, rho, x0, yhat0,
-                            self._comm_mode(nadmm))
+                    if algo.communicates and n_comm > 0:
+                        state, z, y, rho, x0, yhat0, diag, okf = \
+                            self.comm_round(state, ci, z, y, rho, x0, yhat0,
+                                            self._comm_mode(nadmm),
+                                            active=comm_m, corrupt=corrupt,
+                                            gbound=self._round_gbound())
                         diag = {k: float(v) for k, v in diag.items()}
+                        if cfg.update_guard:
+                            self._apply_guard_verdicts(
+                                diag, okf.cpu().numpy(), comm_host)
+                    elif algo.communicates:
+                        # every client out of the exchange: no collective,
+                        # z/y/rho carry over, quarantine still ticks
+                        diag = {"n_active": 0.0}
+                        if cfg.update_guard:
+                            diag.update(guard_trips=0.0, n_ok=0.0)
+                            self._quarantine = np.maximum(
+                                self._quarantine - 1, 0)
                     self._sync()
                     comm_s = time.perf_counter() - t_comm
                     loss_host = loss_acc.cpu().numpy()
@@ -608,16 +942,33 @@ class BlockwiseFederatedTrainer:
                                loss=float(np.sum(loss_host)), rho=float(rho),
                                round_seconds=time.perf_counter() - t_round,
                                stage_seconds=stage_s, train_seconds=train_s,
-                               comm_seconds=comm_s, **diag)
+                               comm_seconds=comm_s, **fcounts, **diag)
                     rec["kernel_launches"] = {
                         k: v - launches0[k] for k, v in _launch_counts().items()}
+                    if cfg.update_guard and algo.communicates:
+                        # quarantine census at round start
+                        rec["quarantined"] = q_start
                     if algo.communicates:
-                        rec["bytes_on_wire"] = self.round_bytes_on_wire(N, K)
+                        rec["bytes_on_wire"] = self.round_bytes_on_wire(
+                            N, diag.get("n_active", K))
                         if self._fused_coll:
                             rec["bytes_fused"] = self.round_bytes_fused(N)
                     if cfg.check_results:
                         rec["accuracy"] = self.evaluate(state)
                     history.append(rec)
+                    if nadmm + 1 < cfg.Nadmm:
+                        nxt = (nloop, ci, nadmm + 1)
+                    elif ci + 1 < self.L:
+                        nxt = (nloop, ci + 1, 0)
+                    else:
+                        nxt = (nloop + 1, 0, 0)
+                    if checkpoint_path is not None:
+                        t_ckpt = time.perf_counter()
+                        self._save_midrun(checkpoint_path, state,
+                                          (z, y, rho, x0, yhat0), nxt,
+                                          history)
+                        rec["ckpt_write_seconds"] = (
+                            time.perf_counter() - t_ckpt)
                     blk = self.block_ids[ci]
                     msg = (f"block=[{blk[0]},{blk[1]}]({N},{float(rho):f}) "
                            f"round={nadmm}/{nloop} "
@@ -626,6 +977,9 @@ class BlockwiseFederatedTrainer:
                         msg += " acc=" + np.array2string(rec["accuracy"],
                                                          precision=2)
                     log(msg)
+        # write barrier: every queued save is durable before the caller
+        # sees the run finished (a failed background save surfaces here)
+        self._flush_ckpt_writer()
         return state, history
 
     def run_independent(self, state: Optional[ClientState] = None,

@@ -7,7 +7,7 @@ and every model publishes its parameter order as a list of such paths.
 
 from __future__ import annotations
 
-from typing import Any, Callable, Mapping
+from typing import Any, Callable, List, Mapping
 
 import torch
 
@@ -47,3 +47,50 @@ def tree_stack(trees) -> dict:
     return {k: tree_stack([t[k] for t in trees]) if isinstance(v, Mapping)
             else torch.stack([t[k] for t in trees])
             for k, v in first.items()}
+
+
+def leaves(tree: Any) -> List[Any]:
+    """The leaves of a state tree (nested dicts, lists, tuples and
+    NamedTuples over tensors and Python numbers) in a fixed order: dict
+    keys sorted, sequences in order; ``None`` holds no leaf."""
+    if tree is None:
+        return []
+    if isinstance(tree, Mapping):
+        return [x for k in sorted(tree) for x in leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in leaves(v)]
+    return [tree]
+
+
+def unflatten_like(template: Any, values) -> Any:
+    """``template`` with its leaves replaced by ``values`` (in the order of
+    :func:`leaves`): a tensor value takes the template leaf's device and
+    dtype, a Python-number leaf (an L-BFGS counter) its type."""
+    it = iter(values)
+
+    def rec(node):
+        if node is None:
+            return None
+        if isinstance(node, Mapping):
+            out = {k: rec(node[k]) for k in sorted(node)}
+            return {k: out[k] for k in node}
+        if isinstance(node, tuple) and hasattr(node, "_fields"):
+            return type(node)(*[rec(v) for v in node])
+        if isinstance(node, (list, tuple)):
+            return type(node)(rec(v) for v in node)
+        v = next(it)
+        if isinstance(node, torch.Tensor):
+            v = torch.as_tensor(v)
+            return v.to(device=node.device, dtype=node.dtype)
+        return type(node)(v.item() if isinstance(v, torch.Tensor) else v)
+
+    out = rec(template)
+    if next(it, None) is not None:
+        raise ValueError("more values than the template has leaves")
+    return out
+
+
+def map_leaves(fn: Callable[..., Any], tree: Any, *rest: Any) -> Any:
+    """``fn`` over the corresponding leaves of equally structured trees."""
+    return unflatten_like(tree, [fn(*xs) for xs in
+                                 zip(leaves(tree), *map(leaves, rest))])

@@ -8,8 +8,11 @@ interpret mode.  :func:`run_both` returns both histories and final states
 as numpy trees in the JAX layout.
 """
 
+import contextlib
+
 import jax
 import numpy as np
+import torch
 
 from federated_pytorch_test_tpu.data.cifar10 import FederatedCifar10 as JData
 from federated_pytorch_test_tpu.ops.comm_kernels import force_comm_kernels_impl
@@ -92,3 +95,17 @@ def moved_modules(p0, params) -> set:
 def max_param_diff(a, b) -> float:
     return max(float(np.abs(x - y).max())
                for x, y in zip(jax.tree.leaves(a), jax.tree.leaves(b)))
+
+
+@contextlib.contextmanager
+def torch_threads(n: int):
+    """Run the block on ``n`` torch (OpenMP and MKL) threads, then restore
+    the count.  A fixed count keeps bitwise comparisons of two port runs
+    in one process independent of how a loaded machine schedules threads,
+    and one thread keeps many test processes from oversubscribing it."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(n)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(old)

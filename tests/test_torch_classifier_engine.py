@@ -34,6 +34,7 @@ import torch
 from jax.sharding import PartitionSpec as P
 
 from _torch_engine_pair import run_both
+from _torch_tmp_cwd import tmp_cwd  # noqa: F401
 from federated_pytorch_test_tpu.data.cifar10 import FederatedCifar10 as JData
 from federated_pytorch_test_tpu.models import base as jbase
 from federated_pytorch_test_tpu.models.resnet import MaskedBatchNorm
@@ -292,10 +293,10 @@ def test_driver_defaults_are_the_reference_ones():
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--participation", "0.5"], "not ported"),
+    (["--campaign-spec", "none"], "not ported"),
     (["--device-data"], "not ported"),
     (["--fused-rounds"], "not ported"),
-    (["--fault-spec", "drop=0.5"], "not ported"),
+    (["--max-restarts", "2"], "not ported"),
 ])
 def test_unported_knobs_are_refused(argv, match, capsys):
     with pytest.raises(SystemExit):

@@ -20,6 +20,7 @@ import pytest
 import torch
 
 from _torch_engine_pair import max_param_diff, moved_modules, run_both
+from _torch_tmp_cwd import tmp_cwd  # noqa: F401
 from federated_pytorch_test_tpu.models.simple import Net as JNet
 from federated_pytorch_test_tpu.train import algorithms as jalg
 from federated_pytorch_test_tpu_torch.drivers import (

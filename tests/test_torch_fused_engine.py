@@ -27,6 +27,7 @@ import pytest
 
 from _torch_engine_pair import K, run_both
 from _torch_jax_draws import jax_block_keys, replay
+from _torch_tmp_cwd import tmp_cwd  # noqa: F401
 from federated_pytorch_test_tpu.data.cifar10 import FederatedCifar10 as JData
 from federated_pytorch_test_tpu.models.simple import Net as JNet
 from federated_pytorch_test_tpu.train import algorithms as jalg

@@ -26,6 +26,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_tmp_cwd import tmp_cwd  # noqa: F401
 from _torch_vae_pair import (
     K, driver_argv, max_diff, run_both, run_port_driver, same_rounds)
 from federated_pytorch_test_tpu.models.vae_cl import AutoEncoderCNNCL as JVAECL
@@ -110,9 +111,10 @@ def test_vae_cl_switches_optimizer_per_block(vae_cl):
         "lbfgs", "lbfgs", "adam"]
     assert [tt.reg_for_block(ci) for ci in range(3)] == [(0.0, 1e-3)] * 3
     assert tt.lr_for_block(2) == 1e-4 and tt.lbfgs.lr == 1.0
-    # the latent block ran Adam from a fresh count: one epoch of 3 steps
+    # the latent block ran Adam from a fresh count: one epoch of 3 steps,
+    # counted per client
     opt = vae_cl["tstate"].opt_state
-    assert isinstance(opt, AdamState) and opt.count == 3
+    assert isinstance(opt, AdamState) and opt.count.tolist() == [3, 3]
 
 
 def test_lbfgs_line_search_reuses_the_step_draw():

@@ -20,6 +20,7 @@ import importlib
 import numpy as np
 import pytest
 import torch
+from _torch_tmp_cwd import tmp_cwd  # noqa: F401
 
 from federated_pytorch_test_tpu_torch.drivers import common, federated_vae, federated_vae_cl
 
@@ -51,7 +52,7 @@ def test_driver_refuses_cuda_without_a_card(name, monkeypatch):
 
 
 @pytest.mark.parametrize("name", list(DRIVERS))
-@pytest.mark.parametrize("flag", ["--load-model", "--midrun-checkpoint",
+@pytest.mark.parametrize("flag", ["--campaign-spec", "--serve-spec",
                                   "--max-restarts", "--obs-dir"])
 def test_driver_refuses_unported_knobs(name, flag, capsys):
     with pytest.raises(SystemExit):

@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_tmp_cwd import tmp_cwd  # noqa: F401
 from _torch_vae_pair import (
     K, driver_argv, max_diff, run_both, run_port_driver, same_rounds)
 from federated_pytorch_test_tpu.models.vae import AutoEncoderCNN as JVAE
