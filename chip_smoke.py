@@ -210,11 +210,62 @@ which stops the script with a non-zero exit if it fails:
     checksum damaged, a resume falls back to the older slot and still
     ends bit for bit equal.
 
+26. slice 7, the CPC under attack: ``drivers.federated_cpc`` at its
+    defaults (K=4, Lc=256, Rc=32, batch 128, patch 32, Niter=10; nothing
+    cut) with ``--Nadmm 2 --participation 0.75 --fault-spec
+    corrupt=0.25,mode=scale,scale=100,seed=3 --update-guard
+    --quarantine-rounds 1 --robust-agg krum --trim-frac 0.25
+    --robust-chunked --num-devices 2`` and ``--obs-dir`` (8 rounds), the
+    B3, B4 and B5 counts set to 0 just before and read just after.  Every
+    round finite; every round's ``n_active``, ``fault_corrupted`` and
+    ``quarantined`` equal a numpy replay of the participation (tag 11),
+    fault (tag 47) and quarantine ledgers keyed on the rotation's flat
+    block index, the guard's verdicts read from the stream's client
+    records; B4 and B5 launched in every round in which a client trains
+    and in no other, B3 twice in every round with an exchange; the first
+    exchange's shard slabs through ``gram`` and ``gram_plain`` within the
+    tolerance of phase 4; every line of the JSONL valid under the port's
+    ``validate_record``, one ``round`` and one ``client`` record a round in
+    file order.  Then the first round once more under ``--profile-dir``:
+    the Chrome trace holds its ``record_function`` span; the device-busy
+    share of the span is printed, not checked;
+27. slice 7, supervised CPC preemption, in child processes set up as
+    phase 25's: the defaults with ``--Nadmm 2 --async-rounds
+    --max-staleness 2 --fault-spec delay=0.3,join=0.2,leave=0.1,
+    preempt=0.15,seed=S --max-restarts 2 --restart-backoff 0.5``, S picked
+    with ``round_preempt`` so the preemption fires inside a block past the
+    first (a resumed segment arms none), and beside it the same spec
+    without ``preempt=``.  Histories (``*_seconds`` stripped) and end-of-run
+    checkpoints bit for bit equal; the preempted stream's control records
+    exactly one ``restart`` (attempt 1 at the preempted round, backoff
+    ``restart_backoff_seconds(0.5, 69, 1)``, between 0.25 and 0.75 s), no
+    ``ladder_override``; the port's ``control.replay`` returns 0 on it;
+28. slice 7, classifier chaos with the shield rung:
+    ``drivers.consensus_multi --model resnet18`` (ADMM) with slice 2's
+    configuration and cuts (Nadmm 2, 20 rounds) and ``--compress q8
+    --error-feedback --fused-collective --num-devices 2 --async-rounds
+    --max-staleness 2 --fault-spec corrupt=0.5,mode=inf,clients=3,seed=3,
+    delay=0.25,delay_max=1 --health-action abort --health-streak 1
+    --health-residual --control act --max-restarts 2 --restart-backoff 0``
+    (the JAX package's chaos acceptance at full width, with the attack
+    ``CHAOS_ARGV``'s comment explains), the B1/B2 counts set to 0 just
+    before and read just after.  The run completes every round with finite
+    parameters; the first run and restart 1 run q8 without the guard,
+    restart 2 q4 with the guard and quarantine 2 (the shield rung, capped
+    at q4 by the fused collective); ``restart`` records at attempts 1 and
+    2; the ``ladder_override`` set {compress -> q4, update_guard -> True,
+    quarantine_rounds -> 2}, each at ladder stage 1; no control record
+    with ``time_unix``; the port's replay returns 0 on the stream and 1 on
+    a copy with one backoff forged; B1 and B2 launched in every exchanging
+    round.
+
 Phases 15-21, 24 and 25 run no hand-written kernel (top-k, the
 scatter-add, the L-BFGS update and the VAEs are stock PyTorch, as in the
 JAX package they are XLA; phase 24's q8 exchange is not fused); the
-kernel line's launches are those of phase 5 (B4, B5), phases 8 and 22
-(B3) and phases 12 and 23 (B1, B2).
+kernel line's launches are those of phases 5, 26 and 27 (B4, B5; phase
+27's counted in its children), phases 8, 22 and 26 (B3) and phases 12,
+23 and 28 (B1, B2).  Every driver phase before 26 passes
+``--obs-sinks none``.
 
 The line before the last is the per-kernel JSON record (with each
 kernel's host-only time, and B3's stem and B2's in-place fields); the last
@@ -279,7 +330,8 @@ GRAM_SEQUENCE = ((10, 100_003), (10, 1_000_000), (17, 60_000))
 SLICE2_ARGV = ["--device", "cuda", "--model", "resnet18", "--robust-agg",
                "krum", "--robust-chunked", "--num-devices", "2", "--Nloop",
                "1", "--Nadmm", "2", "--n-train", "1280", "--n-test", "1000",
-               "--no-save-model"]
+               "--no-save-model",
+    "--obs-sinks", "none"]
 #: rounds of phases 8, 12, 15, 22 and 24 (one rotation of the 10 blocks,
 #: Nadmm 2)
 SLICE2_ROUNDS = 20
@@ -298,7 +350,8 @@ QUANT_RING = 8
 SLICE3_ARGV = ["--device", "cuda", "--model", "resnet18", "--compress", "q8",
                "--fused-collective", "--num-devices", "2", "--Nloop", "1",
                "--Nadmm", "2", "--n-train", "1280", "--n-test", "1000",
-               "--no-save-model"]
+               "--no-save-model",
+    "--obs-sinks", "none"]
 #: the byte models at the largest block (ops/packed_reduce.py,
 #: compress/quantize.py): what the records must carry
 LARGEST_BYTES_FUSED = 9_588_800
@@ -313,7 +366,8 @@ LARGEST_BYTES_ON_WIRE = 47_944_000
 SLICE4_ARGV = ["--device", "cuda", "--model", "resnet18", "--compress", "topk",
                "--topk-frac", "0.1", "--error-feedback", "--fused-collective",
                "--num-devices", "2", "--Nloop", "1", "--Nadmm", "2",
-               "--n-train", "1280", "--n-test", "1000", "--no-save-model"]
+               "--n-train", "1280", "--n-test", "1000", "--no-save-model",
+    "--obs-sinks", "none"]
 #: top-k at the largest block, for the run's frac and the default 1%:
 #: (k = round(frac * 4,720,640), bytes_on_wire K * 8k, bytes_fused
 #: (D-1) * K * 8k at D = 2)
@@ -327,23 +381,27 @@ TOPK_MEAN_REL = 1e-6
 NO_CONSENSUS_EPOCHS = 2
 NO_CONSENSUS_ARGV = ["--device", "cuda", "--model", "resnet18", "--Nepoch",
                      str(NO_CONSENSUS_EPOCHS), "--n-train", "1280",
-                     "--n-test", "1000", "--no-save-model"]
+                     "--n-test", "1000", "--no-save-model",
+    "--obs-sinks", "none"]
 #: FedProx on ResNet18: Nloop 12 -> 1, Nadmm 5 -> 1 (10 rounds), the data cuts
 FEDPROX_ARGV = ["--device", "cuda", "--model", "resnet18", "--Nloop", "1",
                 "--Nadmm", "1", "--n-train", "1280", "--n-test", "1000",
-                "--no-save-model"]
+                "--no-save-model",
+    "--obs-sinks", "none"]
 #: FedAvg with L-BFGS on Net: Nloop 12 -> 1, Nadmm 3 -> 1 (5 rounds), the
 #: data cuts
 LBFGS_ARGV = ["--device", "cuda", "--model", "net", "--optimizer", "lbfgs",
               "--Nloop", "1", "--Nadmm", "1", "--n-train", "1280",
-              "--n-test", "1000", "--no-save-model"]
+              "--n-test", "1000", "--no-save-model",
+    "--obs-sinks", "none"]
 #: phase 19: the accuracy comparison's defaults, Nloop 3 -> 1 (the
 #: script's time went to slice 6's phases)
 ACCURACY_NLOOP = 1
 #: the Pallas sites B1 and B2 replace
 #: phases 20-21 (slice 5): the reference widths with the data cuts
 VAE_ARGV = ["--device", "cuda", "--Nloop", "1", "--n-train", "1280",
-            "--n-test", "1000", "--no-save-model"]
+            "--n-test", "1000", "--no-save-model",
+    "--obs-sinks", "none"]
 VAE_ROUNDS = {"federated_vae": 12 * 3, "federated_vae_cl": 3 * 3}
 #: the first round on the card against the CPU, same weights and noise,
 #: per phase: (the round's loss, relative; z's update from the common
@@ -363,7 +421,8 @@ KRUM_ATTACK_ARGV = [
     "--participation", "0.8", "--fault-spec",
     "corrupt=0.2,mode=scale,scale=100,seed=3", "--update-guard",
     "--quarantine-rounds", "1", "--Nloop", "1", "--Nadmm", "2",
-    "--n-train", "1280", "--n-test", "1000", "--no-save-model"]
+    "--n-train", "1280", "--n-test", "1000", "--no-save-model",
+    "--obs-sinks", "none"]
 #: phase 23: buffered async rounds with transit delay and churn over the
 #: q8 fused collective (FedAvg, Nadmm 3 -> 3 kept: 30 rounds)
 ASYNC_ARGV = [
@@ -372,7 +431,8 @@ ASYNC_ARGV = [
     "--async-rounds", "--max-staleness", "2", "--staleness-alpha", "0.5",
     "--fault-spec", "delay=0.4,drop=0.1,join=0.2,leave=0.1,seed=5",
     "--Nloop", "1", "--Nadmm", "3", "--n-train", "1280", "--n-test", "1000",
-    "--no-save-model"]
+    "--no-save-model",
+    "--obs-sinks", "none"]
 ASYNC_ROUNDS = 30
 #: phase 24: 40 registered clients over the K=10 slots, stratified cohorts
 #: (FedAvg with q8 + error feedback, Nadmm 3 -> 2: 20 rounds)
@@ -380,13 +440,51 @@ POPULATION_ARGV = [
     "--device", "cuda", "--model", "resnet18", "--population", "40",
     "--cohort-sampling", "stratified", "--participation", "0.9",
     "--compress", "q8", "--error-feedback", "--Nloop", "1", "--Nadmm", "2",
-    "--n-train", "1280", "--n-test", "1000", "--no-save-model"]
+    "--n-train", "1280", "--n-test", "1000", "--no-save-model",
+    "--obs-sinks", "none"]
 #: phase 25: ADMM on Net, deterministic child processes, Nadmm 5 -> 3
 PREEMPT_NADMM, PREEMPT_P = 3, 0.1
 PREEMPT_ARGV = [
     "--device", "cuda", "--model", "net", "--participation", "0.7",
     "--update-guard", "--midrun-checkpoint", "--Nloop", "1", "--Nadmm",
-    str(PREEMPT_NADMM), "--n-train", "1280", "--n-test", "1000"]
+    str(PREEMPT_NADMM), "--n-train", "1280", "--n-test", "1000",
+    "--obs-sinks", "none"]
+#: phases 26-28 (slice 7).  Phase 26: the CPC at its defaults (nothing
+#: cut) under partial participation, x100 corruption, the guard with
+#: quarantine and krum over a 2-shard mesh, Nadmm 1 -> 2 (8 rounds)
+CPC_ATTACK_ARGV = [
+    "--device", "cuda", "--Nadmm", "2", "--participation", "0.75",
+    "--fault-spec", "corrupt=0.25,mode=scale,scale=100,seed=3",
+    "--update-guard", "--quarantine-rounds", "1", "--robust-agg", "krum",
+    "--trim-frac", "0.25", "--robust-chunked", "--num-devices", "2",
+    "--no-save-model"]
+CPC_BLOCKS, CPC_NADMM = 4, 2
+CPC_ROUNDS = CPC_BLOCKS * CPC_NADMM
+#: phase 27: the supervised CPC (async rounds with delay and churn) and a
+#: simulated preemption; the driver's default seed keys the backoff
+CPC_PREEMPT_P, CPC_SEED = 0.15, 69
+CPC_PREEMPT_FAULTS = "delay=0.3,join=0.2,leave=0.1"
+CPC_PREEMPT_ARGV = [
+    "--device", "cuda", "--Nadmm", str(CPC_NADMM), "--async-rounds",
+    "--max-staleness", "2", "--max-restarts", "2", "--restart-backoff", "0.5"]
+#: phase 28: ADMM on ResNet18 over the q8 fused collective, async rounds,
+#: one client shipping inf half the time it delivers, the abort watchdog,
+#: the act-mode control plane and two restarts (slice 2's cuts, 20 rounds).
+#: inf, not NaN: the codec maps a NaN row to finite values (its scale
+#: guard reads NaN as 0), so a NaN attack never reaches z and nothing
+#: trips.  One attacker: with every client attacking the shielded run
+#: trips guard_spike at streak 1.  Seed 3 puts the first attack on a
+#: block's last round; a first attack on a block's first round poisons
+#: the slot a plain restart would replay (ROADMAP.md, queue C)
+CHAOS_ARGV = [
+    "--device", "cuda", "--model", "resnet18", "--compress", "q8",
+    "--error-feedback", "--fused-collective", "--num-devices", "2",
+    "--async-rounds", "--max-staleness", "2", "--fault-spec",
+    "corrupt=0.5,mode=inf,clients=3,seed=3,delay=0.25,delay_max=1",
+    "--health-action", "abort", "--health-streak", "1", "--health-residual",
+    "--control", "act", "--max-restarts", "2", "--restart-backoff", "0",
+    "--Nloop", "1", "--Nadmm", "2", "--n-train", "1280", "--n-test", "1000",
+    "--no-save-model"]
 QUANTIZE_SITE = "federated_pytorch_test_tpu/ops/comm_kernels.py:124"
 DEQUANT_SITE = "federated_pytorch_test_tpu/ops/comm_kernels.py:182"
 #: phase 9's separated case: each moved client's offset has squared norm
@@ -808,7 +906,9 @@ def run_slice(dev):
         infonce.LAUNCHES[k] = 0
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    trainer, state, history = federated_cpc.main(["--device", "cuda"], log=log)
+    trainer, state, history = federated_cpc.main(
+        ["--device", "cuda", "--no-save-model", "--obs-sinks", "none"],
+        log=log)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(infonce.LAUNCHES)
@@ -1958,11 +2058,12 @@ def run_vae(name: str, dev) -> None:
 # slice 6: the robustness shell of a round (phases 22-25)
 
 
-def masked_gram_check(stack, w, trainer, label: str) -> None:
+def masked_gram_check(stack, w, trainer, label: str,
+                      need_masked: bool = True) -> None:
     """The shard slabs krum's Gram sees on a partial round (rows of absent
     and non-finite clients zeroed, as ``robust_federated_mean_chunked``
     builds them) through ``gram`` and ``gram_plain``, within the tolerance
-    of phase 4."""
+    of phase 4; ``need_masked``: the slab must hold a masked row."""
     import torch
 
     from federated_pytorch_test_tpu_torch.ops import gram
@@ -1986,7 +2087,7 @@ def masked_gram_check(stack, w, trainer, label: str) -> None:
         if not ok:
             fail(f"gram kernel disagrees with gram_plain on shard {d} of the "
                  f"masked {label} slab")
-    if zero_rows < 1:
+    if need_masked and zero_rows < 1:
         fail(f"the captured {label} slab has no masked row")
 
 
@@ -2433,10 +2534,12 @@ def preempt_schedule(L: int, nadmm: int, p: float) -> tuple:
 
 
 def child_main(spec_json: str) -> None:
-    """Phase 25's child: one deterministic driver run (cuBLAS workspace and
-    ``torch.use_deterministic_algorithms`` set before the first handle),
-    its history pickled beside the checkpoints; exit 3 on the simulated
-    preemption, with the round it hit."""
+    """Phases 25 and 27's child: one deterministic driver run (cuBLAS
+    workspace and ``torch.use_deterministic_algorithms`` set before the
+    first handle) of ``spec["driver"]`` (default ``consensus_multi``), its
+    history and the InfoNCE launches pickled beside the checkpoints; exit
+    3 on the simulated preemption, with the round it hit."""
+    import importlib
     import pickle
 
     spec = json.loads(spec_json)
@@ -2445,21 +2548,24 @@ def child_main(spec_json: str) -> None:
 
     torch.use_deterministic_algorithms(True)
     sys.path.insert(0, ROOT)
-    from federated_pytorch_test_tpu_torch.drivers import consensus_multi
+    from federated_pytorch_test_tpu_torch.ops import infonce
     from federated_pytorch_test_tpu_torch.parallel.mesh import (
         CollectiveTimeoutError,
     )
 
+    driver = importlib.import_module("federated_pytorch_test_tpu_torch."
+                                     "drivers." + spec.get("driver",
+                                                           "consensus_multi"))
     out = os.path.join(spec["dir"], spec["tag"] + ".pkl")
     try:
-        _, _, history = consensus_multi.main(spec["argv"],
-                                             log=lambda m: None)
+        _, _, history = driver.main(spec["argv"], log=lambda m: None)
     except CollectiveTimeoutError as e:
         with open(out, "wb") as f:
             pickle.dump({"preempted": e.round_index}, f)
         sys.exit(3)
     with open(out, "wb") as f:
-        pickle.dump({"history": history}, f)
+        pickle.dump({"history": history, "launches": dict(infonce.LAUNCHES)},
+                    f)
 
 
 def run_preempt_resume() -> None:
@@ -2569,6 +2675,399 @@ def run_preempt_resume() -> None:
         shutil.rmtree(work, ignore_errors=True)
 
 
+def cpc_flat_blocks(trainer) -> dict:
+    """{sub-model: flat index of its first block} over the CPC rotation,
+    the coordinate the seeded draws key on."""
+    from federated_pytorch_test_tpu_torch.train.cpc_engine import SUBMODELS
+
+    out, n = {}, 0
+    for m in SUBMODELS:
+        out[m] = n
+        n += len(trainer.models[m].train_order_block_ids())
+    return out
+
+
+def read_stream(path: str) -> list:
+    """The records of a JSONL stream, each checked with the port's
+    ``validate_record``."""
+    from federated_pytorch_test_tpu_torch.obs.schema import validate_record
+
+    with open(path) as f:
+        return [validate_record(json.loads(line)) for line in f
+                if line.strip()]
+
+
+def run_cpc_attack(dev) -> dict:
+    """Phase 26; returns the launches of B3, B4 and B5 in the run."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from federated_pytorch_test_tpu_torch.drivers import federated_cpc
+    from federated_pytorch_test_tpu_torch.ops import gram, infonce
+    from federated_pytorch_test_tpu_torch.parallel import comm
+    from federated_pytorch_test_tpu_torch.train.faults import FaultSpec
+
+    captured = {}
+    chunked = comm.robust_federated_mean_chunked
+
+    def capture(x, w=None, **kw):
+        # the first exchange's shard slabs
+        if "first" not in captured:
+            captured["first"] = (x.detach().clone(), w.clone())
+        return chunked(x, w, **kw)
+
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="cpc-attack-",
+                            dir=os.path.join(ROOT, "build"))
+    comm.robust_federated_mean_chunked = capture
+    try:
+        gram.LAUNCHES["gram"] = 0
+        for k in infonce.LAUNCHES:
+            infonce.LAUNCHES[k] = 0
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        trainer, _, history = federated_cpc.main(
+            [*CPC_ATTACK_ARGV, "--obs-dir", work], log=log)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {**infonce.LAUNCHES, **gram.LAUNCHES}
+        records = read_stream(trainer.obs_recorder.jsonl_path)
+    finally:
+        comm.robust_federated_mean_chunked = chunked
+        shutil.rmtree(work, ignore_errors=True)
+    cfg, K = trainer.cfg, trainer.K
+    log(f"cpc attack: {len(history)} rounds in {wall:.2f} s, launches "
+        f"{launches}, max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated(dev)} B")
+    for rec in history:
+        log(json.dumps({k: rec.get(k) for k in (
+            "model", "block", "nadmm", "N", "loss", "dual_residual",
+            "n_active", "fault_corrupted", "quarantined", "guard_trips",
+            "n_ok", "round_seconds", "compute_seconds", "kernel_launches")}))
+    if len(history) != CPC_ROUNDS:
+        fail(f"expected {CPC_ROUNDS} rounds, got {len(history)}")
+    # the stream: one round and one client record a round, in file order
+    kinds = [(r["event"], r["round_index"]) for r in records
+             if r["event"] in ("round", "client")]
+    want = [(e, i) for i in range(len(history)) for e in ("round", "client")]
+    if kinds != want:
+        fail(f"the stream's round and client records are {kinds}")
+    clients = [r for r in records if r["event"] == "client"]
+    log(f"cpc attack: {len(records)} records, every one valid")
+    # the numpy replay of the participation (tag 11), fault (tag 47) and
+    # quarantine ledgers, keyed on the flat block index; the guard's
+    # verdicts read from the client records
+    spec = FaultSpec.parse(cfg.fault_spec)
+    first = cpc_flat_blocks(trainer)
+    q = np.zeros(K, np.int64)
+    for rec, crec in zip(history, clients):
+        if not (np.isfinite(rec["loss"]) and np.isfinite(rec["dual_residual"])):
+            fail(f"non-finite loss or dual residual: {rec}")
+        nloop, nadmm = rec["nloop"], rec["nadmm"]
+        ci = first[rec["model"]] + rec["block"]
+        rng = np.random.default_rng([cfg.seed, 11, nloop, ci, nadmm])
+        base = (rng.random(K) < cfg.participation).astype(np.float32)
+        if not base.any():
+            base[int(rng.integers(K))] = 1.0
+        drop, straggle, corrupt = spec.round_faults(K, nloop, ci, nadmm)
+        comm_m = base * (1.0 - (q > 0)) * (1.0 - drop)
+        corrupt = corrupt * comm_m
+        n_comm, trains = int(comm_m.sum()), bool((comm_m * (1 - straggle)).any())
+        got = (rec["n_active"], rec["fault_corrupted"], rec["quarantined"])
+        if got != (n_comm, int(corrupt.sum()), int((q > 0).sum())):
+            fail(f"round {crec['round_index']}: (n_active, fault_corrupted, "
+                 f"quarantined) {got}, the replay ({n_comm}, "
+                 f"{int(corrupt.sum())}, {int((q > 0).sum())})")
+        kl = rec["kernel_launches"]
+        if (kl["infonce_fwd"] > 0) != trains or \
+                (kl["infonce_bwd"] > 0) != trains:
+            fail(f"round {crec['round_index']}: InfoNCE launches {kl} with "
+                 f"a client training: {trains}")
+        if kl["gram"] != (2 if n_comm else 0):
+            fail(f"round {crec['round_index']}: gram launched {kl['gram']} "
+                 f"times with {n_comm} clients in the exchange")
+        q = np.maximum(q - 1, 0)
+        if n_comm:
+            ok = np.asarray(crec["guard_ok"], np.float32)
+            q[(comm_m > 0) & (ok < 0.5)] = cfg.quarantine_rounds
+    log(f"cpc attack: the replay of {len(history)} rounds is equal")
+    if "first" not in captured:
+        fail("no exchange was captured")
+    stack, w = captured["first"]
+    masked_gram_check(stack, w, trainer,
+                      f"cpc attack, N={stack.shape[1]}", need_masked=False)
+    return launches
+
+
+def profile_cpc_round(dev) -> None:
+    """Phase 26's first round once more under ``--profile-dir``: the Chrome
+    trace holds the round's ``record_function`` span; its device-busy
+    share is printed, not checked."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from federated_pytorch_test_tpu_torch.drivers import federated_cpc
+    from federated_pytorch_test_tpu_torch.train import cpc_engine
+    from federated_pytorch_test_tpu_torch.utils.profiling import TRACE_FILE
+
+    class OneRound(Exception):
+        pass
+
+    step = cpc_engine.CPCTrainer._step_round
+
+    def one_round(self, *a, **kw):
+        step(self, *a, **kw)
+        raise OneRound
+
+    work = tempfile.mkdtemp(prefix="cpc-profile-",
+                            dir=os.path.join(ROOT, "build"))
+    cpc_engine.CPCTrainer._step_round = one_round
+    try:
+        t0 = time.perf_counter()
+        try:
+            federated_cpc.main([*CPC_ATTACK_ARGV, "--obs-sinks", "none",
+                                "--profile-dir", work], log=lambda m: None)
+        except OneRound:
+            pass
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        path = os.path.join(work, TRACE_FILE)
+        if not os.path.isfile(path):
+            fail(f"--profile-dir wrote no {TRACE_FILE}")
+        size = os.path.getsize(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    finally:
+        cpc_engine.CPCTrainer._step_round = step
+        shutil.rmtree(work, ignore_errors=True)
+    spans = [e for e in events if e.get("name") == "comm_round#0"
+             and e.get("ph") == "X"]
+    if not spans:
+        fail("the trace holds no comm_round#0 span")
+    s0 = min(float(e["ts"]) for e in spans)
+    s1 = max(float(e["ts"]) + float(e["dur"]) for e in spans)
+    busy = []
+    for e in events:
+        if e.get("ph") == "X" and e.get("cat") == "kernel":
+            a, b = float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0))
+            if b > s0 and a < s1:
+                busy.append((max(a, s0), min(b, s1)))
+    busy.sort()
+    total, end = 0.0, -1e300
+    for a, b in busy:
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    log(f"profile: one round of phase 26 under --profile-dir in "
+        f"{wall:.2f} s, trace {size} B, {len(events)} events; the round's "
+        f"span {(s1 - s0) / 1e3:.3f} ms, {len(busy)} kernels, device busy "
+        f"{total / 1e3:.3f} ms ({100 * total / max(s1 - s0, 1e-9):.1f}%)")
+
+
+def run_cpc_preempt() -> dict:
+    """Phase 27: supervised CPC preemption in deterministic child
+    processes; returns the InfoNCE launches of the children."""
+    import pickle
+    import shutil
+    import tempfile
+
+    import torch
+
+    from federated_pytorch_test_tpu_torch.control.replay import main as replay
+    from federated_pytorch_test_tpu_torch.control.supervisor import (
+        restart_backoff_seconds,
+    )
+    from federated_pytorch_test_tpu_torch.utils import checkpoint as ckpt
+
+    seed, at = preempt_schedule(CPC_BLOCKS, CPC_NADMM, CPC_PREEMPT_P)
+    log(f"cpc preempt: seed {seed}, p {CPC_PREEMPT_P}: the preemption "
+        f"fires at round {at} (flat block {at // CPC_NADMM}, nadmm "
+        f"{at % CPC_NADMM})")
+    work = tempfile.mkdtemp(prefix="cpc-preempt-",
+                            dir=os.path.join(ROOT, "build"))
+    timing = lambda k: k.endswith("_seconds")
+    procs = {}
+    try:
+        for tag, pre in (("preempted", f",preempt={CPC_PREEMPT_P}"),
+                         ("reference", "")):
+            argv = [*CPC_PREEMPT_ARGV, "--checkpoint-dir",
+                    os.path.join(work, tag), "--fault-spec",
+                    f"{CPC_PREEMPT_FAULTS}{pre},seed={seed}"]
+            procs[tag] = (subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--phase25-child",
+                 json.dumps({"argv": argv, "dir": work, "tag": tag,
+                             "driver": "federated_cpc"})],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True),
+                time.perf_counter())
+        out = {}
+        for tag, (proc, t0) in procs.items():
+            try:
+                so, se = proc.communicate(timeout=600)
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+            log(f"cpc preempt: child {tag} exit {proc.returncode} in "
+                f"{time.perf_counter() - t0:.2f} s")
+            if proc.returncode != 0:
+                log(so[-4000:])
+                log(se[-4000:])
+                fail(f"phase 27's child {tag} failed")
+            with open(os.path.join(work, tag + ".pkl"), "rb") as f:
+                out[tag] = pickle.load(f)
+        strip = lambda h: [{k: v for k, v in r.items() if not timing(k)}
+                           for r in h]
+        ha, hb = strip(out["preempted"]["history"]), \
+            strip(out["reference"]["history"])
+        ta, ma = ckpt.load_checkpoint(os.path.join(work, "preempted",
+                                                   "federated_cpc"))
+        tb, mb = ckpt.load_checkpoint(os.path.join(work, "reference",
+                                                   "federated_cpc"))
+        same = (ha == hb and ma == mb and ta.keys() == tb.keys()
+                and all(torch.equal(ta[k], tb[k]) for k in ta))
+        log(f"cpc preempt: supervised run vs reference: {len(ha)} and "
+            f"{len(hb)} records, {len(ta)} and {len(tb)} tensors, bit for "
+            f"bit {same}")
+        if not same or len(ha) != CPC_BLOCKS * CPC_NADMM:
+            fail("the supervised CPC run is not bit for bit the reference")
+        path = os.path.join(work, "preempted", "obs", "federated_cpc.jsonl")
+        ctl = [r for r in read_stream(path) if r["event"] == "control"]
+        log(f"cpc preempt: control records "
+            f"{[(r['intervention'], r.get('attempt'), r.get('backoff_seconds')) for r in ctl]}")
+        want = restart_backoff_seconds(0.5, CPC_SEED, 1)
+        if ([(r["intervention"], r.get("attempt")) for r in ctl]
+                != [("restart", 1)] or ctl[0]["backoff_seconds"] != want
+                or not 0.25 <= want <= 0.75
+                or ctl[0]["round_index"] != at):
+            fail(f"the preempted stream's control records are {ctl}, not "
+                 f"one restart (attempt 1, backoff {want}) at round {at}")
+        if replay([path]) != 0:
+            fail("the port's control.replay rejects the supervised stream")
+        launches = {k: out["preempted"]["launches"][k]
+                    + out["reference"]["launches"][k]
+                    for k in out["reference"]["launches"]}
+        log(f"cpc preempt: children's InfoNCE launches {launches}")
+        return launches
+    finally:
+        for proc, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def run_chaos(dev) -> dict:
+    """Phase 28: classifier chaos with the shield rung; returns the B1 and
+    B2 launches of the run."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from federated_pytorch_test_tpu_torch.control.replay import main as replay
+    from federated_pytorch_test_tpu_torch.drivers import common, consensus_multi
+    from federated_pytorch_test_tpu_torch.ops import quant
+    from federated_pytorch_test_tpu_torch.utils.tree import leaves
+
+    from federated_pytorch_test_tpu_torch.train.rounds import RoundKernel
+
+    built, synced = [], []
+    make, obs_sync = common.make_trainer, RoundKernel._obs_sync
+
+    def recording(cfg, *a, **kw):
+        built.append((cfg.compress, cfg.update_guard, cfg.quarantine_rounds))
+        return make(cfg, *a, **kw)
+
+    def timed_sync(self, obs):
+        # the host seconds the recorder's phase syncs wait
+        t0 = time.perf_counter()
+        obs_sync(self, obs)
+        synced.append(time.perf_counter() - t0)
+
+    work = tempfile.mkdtemp(prefix="chaos-", dir=os.path.join(ROOT, "build"))
+    common.make_trainer = recording
+    RoundKernel._obs_sync = timed_sync
+    try:
+        for k in quant.LAUNCHES:
+            quant.LAUNCHES[k] = 0
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        trainer, state, history = consensus_multi.main(
+            [*CHAOS_ARGV, "--checkpoint-dir", work], log=log)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(quant.LAUNCHES)
+        path = os.path.join(work, "obs", "consensus_multi.jsonl")
+        records = read_stream(path)
+        ok = replay([path])
+        # one restart's backoff forged: the replay must refuse it
+        forged = os.path.join(work, "forged.jsonl")
+        with open(path) as f, open(forged, "w") as g:
+            done = False
+            for line in f:
+                r = json.loads(line)
+                if (not done and r["event"] == "control"
+                        and r["intervention"] == "restart"):
+                    r["backoff_seconds"] = 99.0
+                    line, done = json.dumps(r) + "\n", True
+                g.write(line)
+        bad = replay([forged])
+    finally:
+        common.make_trainer = make
+        RoundKernel._obs_sync = obs_sync
+        shutil.rmtree(work, ignore_errors=True)
+    n_run = sum(1 for r in records if r["event"] == "round")
+    log(f"chaos: obs phase syncs waited {sum(synced):.4f} s over {n_run} "
+        f"recorded rounds ({sum(synced) / max(n_run, 1) * 1e3:.3f} ms a "
+        f"round, {len(synced)} syncs)")
+    log(f"chaos: {len(history)} rounds in {wall:.2f} s over "
+        f"{len(built)} trainers {built}, launches {launches}, "
+        f"max_memory_allocated {torch.cuda.max_memory_allocated(dev)} B")
+    for r in records:
+        if r["event"] in ("alert", "control", "run_header"):
+            log(json.dumps({k: r.get(k) for k in (
+                "event", "rule", "intervention", "round_index", "attempt",
+                "param", "to_value", "backoff_seconds", "ladder_stage",
+                "rounds_prior")}))
+    for rec in history:
+        log(json.dumps({k: rec.get(k) for k in (
+            "block", "nadmm", "N", "loss", "primal_residual", "dual_residual",
+            "n_active", "fault_corrupted", "guard_trips", "quarantined",
+            "round_seconds", "kernel_launches")}))
+    if len(history) != SLICE2_ROUNDS:
+        fail(f"expected {SLICE2_ROUNDS} rounds, got {len(history)}")
+    if not all(bool(torch.isfinite(t).all()) for t in leaves(state.params)):
+        fail("the chaos run's final parameters are not finite")
+    if built != [("q8", False, 1), ("q8", False, 1), ("q4", True, 2)]:
+        fail(f"the attempts ran {built}, not q8, q8, then q4 with the guard")
+    ctl = [r for r in records if r["event"] == "control"]
+    sup = [r for r in ctl if r["source"] == "supervisor"]
+    restarts = [r["attempt"] for r in sup if r["intervention"] == "restart"]
+    ladder = {(r["param"], r["to_value"], r["ladder_stage"]) for r in sup
+              if r["intervention"] == "ladder_override"}
+    if restarts != [1, 2]:
+        fail(f"restart attempts {restarts}, not [1, 2]")
+    if ladder != {("compress", "q4", 1), ("update_guard", True, 1),
+                  ("quarantine_rounds", 2, 1)}:
+        fail(f"ladder overrides {ladder}")
+    if any("time_unix" in r for r in ctl):
+        fail("a control record carries time_unix")
+    log(f"chaos: replay {ok} on the stream, {bad} with a forged backoff")
+    if (ok, bad) != (0, 1):
+        fail("the port's control.replay does not accept the honest stream "
+             "and refuse the forged one")
+    for rec in history:
+        kl = rec["kernel_launches"]
+        if rec.get("n_active", 0) > 0 and not (
+                kl["quantize_chunks"] > 0 and kl["dequant_add"] > 0):
+            fail(f"B1/B2 not launched in exchanging round (block "
+                 f"{rec['block']}, nadmm {rec['nadmm']}): {kl}")
+    return launches
+
+
 def main() -> None:
     import torch
 
@@ -2605,6 +3104,14 @@ def main() -> None:
         quant_launches[k] += v
     run_population(dev)
     run_preempt_resume()
+    cpc = run_cpc_attack(dev)
+    profile_cpc_round(dev)
+    children = run_cpc_preempt()
+    for k in launches:
+        launches[k] += cpc[k] + children[k]
+    gram_launches += cpc["gram"]
+    for k, v in run_chaos(dev).items():
+        quant_launches[k] += v
     log(f"summary: krum's selection on the raw y + rho*x stack, kernel vs "
         f"gram_plain: {raw_krum}")
 
@@ -2646,7 +3153,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--phase25-child"]:
+    if sys.argv[1:2] == ["--phase25-child"]:      # phases 25 and 27
         child_main(sys.argv[2])
     else:
         main()

@@ -1,17 +1,20 @@
-"""Shared CLI plumbing for the port's CIFAR-10 drivers (the classifiers
-and the VAEs).
+"""Shared CLI plumbing for the port's drivers (the classifiers, the VAEs
+and the CPC's flag surface).
 
 Port of ``federated_pytorch_test_tpu/drivers/common.py`` without
-supervision, campaigns or telemetry: flags (the JAX knob names of every
-``FederatedConfig`` field the port has, plus ``--device``, ``--n-train``
-and ``--n-test``), the data partition, the model choice, the engine and
-its checkpoints (``--midrun-checkpoint`` saves after every round under
+campaigns: flags (the JAX knob names of every ``FederatedConfig`` field
+the port has, plus ``--device``, ``--n-train`` and ``--n-test``), the data
+partition, the model choice, the engine and its checkpoints
+(``--midrun-checkpoint`` saves after every round under
 ``<checkpoint-dir>/<prog>_midrun``, ``--load-model`` resumes that slot or
 else loads the end-of-run ``<checkpoint-dir>/<prog>``, which the run saves
-unless ``--no-save-model``).  A driver may hand in its own trainer class,
-model and extra flags, and refuses the flags of what it fixes.  A knob of
-the JAX driver that the port does not have yet is refused by name instead
-of being ignored.
+unless ``--no-save-model``), the record stream (written under
+``<checkpoint-dir>/obs`` unless ``--obs-dir`` or ``--obs-sinks`` say
+otherwise) and the restart supervisor (``--max-restarts``, which turns the
+mid-run checkpoint on).  A driver may hand in its own trainer class, model
+and extra flags, and refuses the flags of what it fixes.  A knob of the
+JAX driver that the port does not have yet is refused by name instead of
+being ignored.
 """
 
 from __future__ import annotations
@@ -24,9 +27,17 @@ from typing import Callable, Optional, Type
 import torch
 
 from federated_pytorch_test_tpu_torch.compress.base import COMPRESS_CHOICES
+from federated_pytorch_test_tpu_torch.control.policy import (
+    CONTROL_MODES,
+    CONTROL_POLICIES,
+)
+from federated_pytorch_test_tpu_torch.control.supervisor import (
+    supervise_classifier,
+)
 from federated_pytorch_test_tpu_torch.data.cifar10 import FederatedCifar10
 from federated_pytorch_test_tpu_torch.models.resnet import ResNet9, ResNet18
 from federated_pytorch_test_tpu_torch.models.simple import Net, Net1, Net2
+from federated_pytorch_test_tpu_torch.obs.health import HEALTH_ACTIONS
 from federated_pytorch_test_tpu_torch.parallel.comm import ROBUST_AGG_CHOICES
 from federated_pytorch_test_tpu_torch.population.sampler import SAMPLER_CHOICES
 from federated_pytorch_test_tpu_torch.train.algorithms import Algorithm
@@ -43,8 +54,7 @@ MODEL_CHOICES = ("auto",) + tuple(_MODELS)
 #: have yet (ROADMAP.md): given on the command line, they raise
 UNPORTED = (
     "campaign-spec", "fused-rounds", "overlap-staging", "overlap-round",
-    "sharded-update", "device-data", "max-restarts", "obs-dir",
-    "obs-sinks", "control", "serve-spec", "profile-dir", "be-verbose")
+    "sharded-update", "device-data", "serve-spec", "be-verbose")
 
 #: parse_config's default of a ``fixed`` field, to tell it from a given one
 _FIXED = object()
@@ -54,7 +64,8 @@ def build_parser(defaults: FederatedConfig, prog: str) -> argparse.ArgumentParse
     """Argparse over the port's FederatedConfig fields (JAX knob names)."""
     p = argparse.ArgumentParser(
         prog=prog, description="Federated CIFAR-10 driver (PyTorch + CUDA)")
-    optional_types = {"data_dir": str, "num_devices": int}
+    optional_types = {"data_dir": str, "num_devices": int,
+                      "profile_dir": str, "obs_dir": str}
     for f in dataclasses.fields(FederatedConfig):
         default = getattr(defaults, f.name)
         arg = "--" + f.name.replace("_", "-")
@@ -75,6 +86,28 @@ def build_parser(defaults: FederatedConfig, prog: str) -> argparse.ArgumentParse
             p.add_argument(arg, choices=MODEL_CHOICES, default=default)
         elif f.name == "cohort_sampling":
             p.add_argument(arg, choices=SAMPLER_CHOICES, default=default)
+        elif f.name == "fault_spec":
+            p.add_argument(
+                arg, type=str, default=default, metavar="SPEC",
+                help="fault injection (train/faults.py): 'none' or "
+                     "drop=P,straggle=P,corrupt=P,mode=nan|inf|signflip|"
+                     "scale|innerprod|collude,scale=X,seed=N,clients=i+j,"
+                     "delay=P,delay_max=N,join=P,leave=P,preempt=P")
+        elif f.name == "health_action":
+            p.add_argument(
+                arg, choices=HEALTH_ACTIONS, default=default,
+                help="watchdog response (obs/health.py): warn writes "
+                     "alert records, abort raises RunHealthAbort, "
+                     "checkpoint-abort verifies a final checkpoint first")
+        elif f.name == "control":
+            p.add_argument(
+                arg, choices=CONTROL_MODES, default=default,
+                help="control plane (control/): observe records the "
+                     "decisions, act applies them; check a stream with "
+                     "python -m federated_pytorch_test_tpu_torch.control."
+                     "replay <jsonl>")
+        elif f.name == "control_policy":
+            p.add_argument(arg, choices=CONTROL_POLICIES, default=default)
         elif default is None:
             p.add_argument(arg, type=optional_types[f.name], default=None)
         else:
@@ -110,7 +143,24 @@ def parse_config(defaults: FederatedConfig, prog: str, argv=None,
         setattr(args, name, getattr(defaults, name))
     cfg = FederatedConfig(**{f.name: getattr(args, f.name)
                              for f in dataclasses.fields(FederatedConfig)})
-    return cfg, args
+    return default_obs_dir(cfg), args
+
+
+def default_obs_dir(cfg: FederatedConfig) -> FederatedConfig:
+    """A driver's record stream goes to ``<checkpoint_dir>/obs`` unless
+    ``--obs-dir`` names another directory or ``--obs-sinks`` is given;
+    engine-API callers keep the file-free "auto" without a directory."""
+    if cfg.obs_dir is None and cfg.obs_sinks == "auto":
+        cfg = dataclasses.replace(
+            cfg, obs_dir=os.path.join(cfg.checkpoint_dir, "obs"))
+    return cfg
+
+
+def print_obs_artifact(trainer, log=print) -> None:
+    """Name the run's JSONL stream, if it wrote one."""
+    rec = getattr(trainer, "obs_recorder", None)
+    if rec is not None and rec.jsonl_path:
+        log(f"obs artifact -> {rec.jsonl_path}")
 
 
 def pick_model(cfg: FederatedConfig):
@@ -187,18 +237,27 @@ def run_classifier_driver(prog: str, defaults: FederatedConfig,
                           argv=None, log=print):
     """Parse, build and run a classifier driver (:func:`run_driver`)."""
     cfg, args = parse_config(defaults, prog, argv)
-    return run_driver(prog, make_trainer(cfg, algorithm, args.n_train,
-                                         args.n_test), independent, log)
+
+    def build(c):
+        return make_trainer(c, algorithm, args.n_train, args.n_test)
+
+    return run_driver(prog, build(cfg), independent, log, rebuild=build)
 
 
 def run_driver(prog: str, trainer: BlockwiseFederatedTrainer,
-               independent: bool = False, log=print):
+               independent: bool = False, log=print,
+               rebuild: Optional[Callable] = None):
     """Run the driver ``prog``'s trainer; returns (trainer, state,
     history).  ``independent``: the no-consensus baseline
     (``run_independent``).  The mid-run checkpoint (``--midrun-checkpoint``)
     lives at ``<checkpoint_dir>/<prog>_midrun``; ``--load-model`` resumes
-    it, else starts from the end-of-run checkpoint (:func:`maybe_load`)."""
+    it, else starts from the end-of-run checkpoint (:func:`maybe_load`).
+    With ``--max-restarts`` the run is supervised
+    (``control/supervisor.py``): the mid-run checkpoint is on, and each
+    restart resumes it on a trainer ``rebuild(cfg)`` makes from the
+    attempt's (from the second restart on, degraded) configuration."""
     cfg = trainer.cfg
+    trainer.obs_run_name = prog
     mname = type(trainer.model).__name__
     if mname == "ResNet":
         mname = f"ResNet{trainer.model.qualifier}"
@@ -209,11 +268,30 @@ def run_driver(prog: str, trainer: BlockwiseFederatedTrainer,
     if independent:
         state, history = trainer.run_independent(state, log=log)
     else:
+        supervised = cfg.max_restarts > 0
         ck = (checkpoint_path(cfg, prog + "_midrun")
-              if cfg.midrun_checkpoint else None)
-        state, history = trainer.run(
-            state, log=log, checkpoint_path=ck,
-            resume=cfg.load_model and ck is not None)
+              if cfg.midrun_checkpoint or supervised else None)
+        if supervised:
+            box = {"trainer": trainer}
+
+            def build_trainer(c, attempt):
+                if attempt > 1:
+                    # the failed attempt's trainer is closed
+                    box["trainer"] = rebuild(c)
+                    box["trainer"].obs_run_name = prog
+                return box["trainer"]
+
+            state, history = supervise_classifier(
+                build_trainer, cfg, ck, state=state, resume=cfg.load_model,
+                run_kwargs={"log": log}, log=log,
+                engine=("vae" if trainer.obs_engine.startswith("vae")
+                        else "classifier"))
+            trainer = box["trainer"]
+        else:
+            state, history = trainer.run(
+                state, log=log, checkpoint_path=ck,
+                resume=cfg.load_model and ck is not None)
     finish(trainer, state, prog, history, log)
+    print_obs_artifact(trainer, log)
     log("Finished Training")
     return trainer, state, history

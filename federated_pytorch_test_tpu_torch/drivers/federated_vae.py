@@ -25,16 +25,19 @@ DEFAULTS = FederatedConfig(K=10, Nloop=12, Nepoch=1, Nadmm=3,
 FIXED = ("model", "use_resnet", "norm", "bf16", "lambda1", "lambda2")
 
 
-def build(argv=None) -> VAETrainer:
-    """The driver's trainer from its flags ``argv``."""
-    cfg, args = common.parse_config(DEFAULTS, PROG, argv, fixed=FIXED)
-    return common.make_trainer(cfg, FedAvg(), args.n_train, args.n_test,
-                               AutoEncoderCNN(), VAETrainer)
+def build(argv=None, cfg=None) -> VAETrainer:
+    """The driver's trainer from its flags ``argv``; ``cfg`` in place of
+    their configuration (the supervisor's rebuild on a degraded one)."""
+    cfg0, args = common.parse_config(DEFAULTS, PROG, argv, fixed=FIXED)
+    return common.make_trainer(cfg or cfg0, FedAvg(), args.n_train,
+                               args.n_test, AutoEncoderCNN(),
+                               VAETrainer)
 
 
 def main(argv=None, log=print):
     """Run federated_vae; returns (trainer, state, history)."""
-    return common.run_driver(PROG, build(argv), log=log)
+    return common.run_driver(PROG, build(argv), log=log,
+                             rebuild=lambda cfg: build(argv, cfg))
 
 
 if __name__ == "__main__":

@@ -37,17 +37,21 @@ def add_args(p) -> None:
                    help="latent dimension (federated_vae_cl.py:23)")
 
 
-def build(argv=None) -> VAECLTrainer:
-    """The driver's trainer from its flags ``argv``."""
-    cfg, args = common.parse_config(DEFAULTS, PROG, argv, add_args, FIXED)
-    return common.make_trainer(cfg, FedAvg(), args.n_train, args.n_test,
+def build(argv=None, cfg=None) -> VAECLTrainer:
+    """The driver's trainer from its flags ``argv``; ``cfg`` in place of
+    their configuration (the supervisor's rebuild on a degraded one)."""
+    cfg0, args = common.parse_config(DEFAULTS, PROG, argv, add_args,
+                                     FIXED)
+    return common.make_trainer(cfg or cfg0, FedAvg(), args.n_train,
+                               args.n_test,
                                AutoEncoderCNNCL(K=args.Kc, L=args.Lc),
                                VAECLTrainer)
 
 
 def main(argv=None, log=print):
     """Run federated_vae_cl; returns (trainer, state, history)."""
-    return common.run_driver(PROG, build(argv), log=log)
+    return common.run_driver(PROG, build(argv), log=log,
+                             rebuild=lambda cfg: build(argv, cfg))
 
 
 if __name__ == "__main__":

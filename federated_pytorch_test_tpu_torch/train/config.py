@@ -4,7 +4,8 @@ The subset of ``federated_pytorch_test_tpu/train/config.py``'s
 ``FederatedConfig`` that the ported paths read (the CPC trainer and the
 classifier drivers: FedAvg, FedProx, ADMM consensus and the no-consensus
 baseline, with the robust or compressed exchange and Adam or L-BFGS, the
-robustness shell of a round and its checkpoints),
+robustness shell of a round and its checkpoints, the record stream, the
+health watchdog, the control plane and the restart supervisor),
 with the JAX package's defaults, plus the
 device the run uses.  A knob of the JAX package that is missing here is not
 ported yet (``ROADMAP.md``); the drivers refuse it by name.
@@ -80,6 +81,23 @@ class FederatedConfig:
     async_checkpoint: bool = False   # ... on a writer thread
     load_model: bool = False       # resume the mid-run slot / end-of-run params
     save_model: bool = True        # end-of-run checkpoint
+
+    # the record stream (obs/), the watchdog (obs/health.py), the control
+    # plane and the restart supervisor (control/); the JAX defaults
+    profile_dir: Optional[str] = None  # torch.profiler Chrome trace here
+    obs_dir: Optional[str] = None  # JSONL directory (drivers: <ckpt>/obs)
+    obs_sinks: str = "auto"        # auto|none|jsonl|csv|stdout|memory,...
+    health_action: str = "warn"    # off|warn|abort|checkpoint-abort
+    health_streak: int = 3         # consecutive bad rounds before an alert
+    health_window: int = 8         # EMA warm-up / rolling-median window
+    health_loss_mult: float = 10.0  # divergence envelope multiplier
+    health_tput_frac: float = 0.25  # collapse floor vs rolling median
+    health_residual: bool = False  # trip on NaN/inf residuals too
+    control: str = "off"           # off|observe|act
+    control_policy: str = "default"  # hysteresis preset
+    max_restarts: int = 0          # supervised restarts (0: unsupervised)
+    restart_backoff: float = 1.0   # backoff base, seconds
+    client_ledger: bool = True     # one `client` record a round
 
     data_dir: Optional[str] = None  # CIFAR-10 pickle batches (else synthetic)
     drop_last_sample: bool = True  # reference off-by-one parity

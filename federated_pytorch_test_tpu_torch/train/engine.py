@@ -57,11 +57,21 @@ z.  Adam's step count is kept per client, as optax's under the JAX
 engine's ``vmap``.  ``run(checkpoint_path=...)`` saves a mid-run checkpoint
 after every round and ``resume=True`` continues from the newest usable
 slot (``utils/checkpoint.py``), bit for bit the uninterrupted run.
+
+Every run opens a recorder (``obs/``): a run header, a ``round`` and a
+``client`` record a round with the stage, train and comm spans, and a
+summary, written to ``cfg.obs_dir`` (drivers default it to
+``<checkpoint_dir>/obs``); the health watchdog and the control plane read
+the same records.  With a recorder writing, each phase ends in a device
+sync so that its span measures execution; with obs off the round keeps
+its one sync.  ``cfg.profile_dir`` wraps the run in ``torch.profiler``
+(``utils/profiling.py``).
 """
 
 from __future__ import annotations
 
 import concurrent.futures
+import dataclasses
 import time
 import warnings
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence
@@ -102,11 +112,17 @@ from federated_pytorch_test_tpu_torch.train.losses import (
     cross_entropy,
     l1_l2,
 )
+from federated_pytorch_test_tpu_torch.obs import device_memory_stats
+from federated_pytorch_test_tpu_torch.obs.health import RunHealthAbort
 from federated_pytorch_test_tpu_torch.train.rounds import RoundKernel
 from federated_pytorch_test_tpu_torch.utils import blocks as blocklib
 from federated_pytorch_test_tpu_torch.utils import checkpoint as ckpt
 from federated_pytorch_test_tpu_torch.utils import codec
 from federated_pytorch_test_tpu_torch.utils.device import resolve_device
+from federated_pytorch_test_tpu_torch.utils.profiling import (
+    profile_ctx,
+    round_trace,
+)
 from federated_pytorch_test_tpu_torch.utils.tree import (
     leaves,
     map_leaves,
@@ -202,6 +218,10 @@ class BlockwiseFederatedTrainer(RoundKernel):
     #: "layers" sweeps (weight, bias) pairs, the VAE driver's
     #: unfreeze_one_layer path (federated_vae.py:129)
     sweep: str = "blocks"
+    #: engine tag of the obs records ("vae" and "vae_cl" in the subclasses)
+    obs_engine: str = "classifier"
+    #: the obs stream's run name (the drivers set their program's name)
+    obs_run_name: Optional[str] = None
 
     def __init__(self, model: BlockModule, cfg: FederatedConfig,
                  data: FederatedCifar10, algorithm: Algorithm):
@@ -586,7 +606,8 @@ class BlockwiseFederatedTrainer(RoundKernel):
         indicator and ``gbound`` the guard's norm bound; the three are
         ignored on the full-participation round.  Returns (state, z, y,
         rho, x0, yhat0, diag, okf): ``okf`` the [K] guard verdicts (None
-        with the guard off)."""
+        with the guard off).  With the client record on, ``_client_norms``
+        holds the [K] ``||x_k - z||`` and ``||x_k - z_new||``."""
         cfg = self.cfg
         K = cfg.K
         order, mask = self.order, self.mask_for_block(ci)
@@ -619,6 +640,11 @@ class BlockwiseFederatedTrainer(RoundKernel):
                 comp_new = _sel(active, comp_new, comp)
             comp = comp_new
         w = active if partial else None
+        # the client record's probe: each client's raw ||x_k - z|| on what
+        # the round folds (a non-finite delta stays visible here)
+        probe = self._client_probe
+        cl_nrm = torch.linalg.vector_norm(x - z[None, :], dim=1) \
+            if probe else None
         okf = None
         if guard_on:
             # every incoming delta must be finite and within the bound;
@@ -657,6 +683,8 @@ class BlockwiseFederatedTrainer(RoundKernel):
             diag["guard_trips"] = n_trip
             diag["guard_norm_mean"] = norm_mean
             diag["n_ok"] = n_ok
+        self._client_norms = ((cl_nrm, torch.linalg.vector_norm(
+            x - znew[None, :], dim=1)) if probe else (None, None))
         params = state.params
         if self.algo.writeback:
             wrote = codec.put_trainable_stack(
@@ -721,7 +749,14 @@ class BlockwiseFederatedTrainer(RoundKernel):
         mid-run checkpoint after every round; ``resume``: continue from
         its newest usable slot, if one exists."""
         try:
-            return self._run(state, log, checkpoint_path, resume)
+            with profile_ctx(self.cfg.profile_dir, self.device):
+                return self._run(state, log, checkpoint_path, resume)
+        except BaseException:
+            # the stream gets its summary, flagged aborted (a no-op when
+            # the run closed it)
+            if self.obs_recorder is not None:
+                self.obs_recorder.close(status="aborted")
+            raise
         finally:
             self.close()
 
@@ -828,6 +863,49 @@ class BlockwiseFederatedTrainer(RoundKernel):
                 + "; ".join(failures))
         return None
 
+    def _obs_epoch_images(self) -> int:
+        """Images a local epoch of all clients processes (K * steps *
+        batch, pad rows included); a round covers ``cfg.Nepoch`` of
+        these."""
+        steps = getattr(self.data, "steps", None)
+        batch = getattr(self.data, "batch", None)
+        if not steps or not batch:
+            return 0
+        return int(self.cfg.K * steps * batch)
+
+    def _apply_block_control(self, obs, log=print) -> None:
+        """Act-mode block-scope decisions (the compressor swap), at the
+        block boundary before the block's compressor state is built, as
+        if the run had been constructed with the new compressor.  A swap
+        the construction rules forbid (a dense wire, or a sparse wire
+        under a fused dual-state collective) is skipped and logged."""
+        for d in obs.control.take_block():
+            if d.param != "compress":
+                continue
+            new = str(d.to_value)
+            if new == self.cfg.compress:
+                continue
+            comp = make_compressor(new, topk_frac=self.cfg.topk_frac,
+                                   quant_chunk=self.cfg.quant_chunk,
+                                   error_feedback=self.cfg.error_feedback)
+            if self._fused_coll and comp.name == "none":
+                log("control: skip compress -> none (fused_collective "
+                    "needs a packed wire format)")
+                continue
+            if self._fused_coll and comp.sparse and self.algo.needs_dual:
+                log(f"control: skip compress -> {new} (sparse wire is "
+                    "unavailable under a fused dual-state collective)")
+                continue
+            old = self.cfg.compress
+            with self._cfg_swap_lock:
+                self.compressor = comp
+                self.cfg = dataclasses.replace(self.cfg, compress=new)
+                if self._fused_coll:
+                    self.mean_fn = (None if comp.sparse else make_fused_mean(
+                        comp, self.mesh, self.cfg.K))
+            log(f"control: {d.intervention} compress {old} -> {new} at "
+                f"block boundary ({d.reason})")
+
     def _run(self, state, log, checkpoint_path=None, resume=False):
         cfg, algo = self.cfg, self.algo
         K, dev = cfg.K, self.device
@@ -845,11 +923,19 @@ class BlockwiseFederatedTrainer(RoundKernel):
         if cfg.async_checkpoint and checkpoint_path is not None \
                 and self._ckpt_writer is None:
             self._ckpt_writer = ckpt.AsyncCheckpointWriter()
-        partial = self._partial
+        obs = self._open_obs(resumed=resume_at is not None,
+                             rounds_prior=len(history))
+        if obs.control is not None:
+            # a restart decision needs a checkpoint to restart from
+            obs.control.can_restart = checkpoint_path is not None
+        obs_images = cfg.Nepoch * self._obs_epoch_images()
+        profile_on = cfg.profile_dir is not None
         for nloop in range(cfg.Nloop):
             for ci in range(self.L):
                 if resume_at is not None and (nloop, ci) < resume_at[:2]:
                     continue
+                if obs.control is not None:
+                    self._apply_block_control(obs, log)
                 N = self.block_size(ci)
                 nadmm_start = 0
                 if (resume_at is not None and (nloop, ci) == resume_at[:2]
@@ -873,122 +959,165 @@ class BlockwiseFederatedTrainer(RoundKernel):
                     # a fresh block: fresh guard scale, async updates void
                     self._reset_block_ledgers()
                 for nadmm in range(nadmm_start, cfg.Nadmm):
-                    t_round = time.perf_counter()
-                    launches0 = _launch_counts()
-                    self._maybe_preempt(nloop, ci, nadmm, len(history),
-                                        checkpoint_path)
-                    train_m, comm_m, corrupt, comm_host, fcounts = \
-                        self._round_activity(nloop, ci, nadmm)
-                    n_comm = fcounts.pop("n_comm", 1)
-                    cnorm = self.client_norm
-                    if self._pop_active:
-                        # the cohort rotated: move the compressor/EF rows
-                        # and point slot k's normalisation at its shard
-                        if leaves(state.comp):
-                            state = state._replace(
-                                comp=self._population_swap_comp(
-                                    state.comp, ci))
-                        rows = (self._cohort % K).astype(np.int64)
-                        cnorm = torch.from_numpy(
-                            self._client_norm_host[rows]).to(dev)
-                    if (self._churn_live and self._rejoined_mask.any()
-                            and leaves(state.comp)):
-                        # rejoining clients are new clients: fresh rows
-                        state = state._replace(comp=self._reset_comp_rows(
-                            state.comp, ci, self._rejoined_mask))
-                    q_start = (int(np.sum(self._quarantine > 0))
-                               if cfg.update_guard else 0)
-                    loss_acc = None
-                    stage_s = 0.0
-                    for nepoch in range(cfg.Nepoch):
-                        t_stage = time.perf_counter()
-                        counter = self._epochs_staged
-                        xb, yb, wb = self._stage_epoch(
-                            last=(nloop == cfg.Nloop - 1 and ci == self.L - 1
-                                  and nadmm == cfg.Nadmm - 1
-                                  and nepoch == cfg.Nepoch - 1))
-                        stage_s += time.perf_counter() - t_stage
-                        state, losses = self.train_epoch(
-                            state, ci, y, z, rho, xb, yb, wb, counter,
-                            active=train_m if partial else None, norm=cnorm)
-                        loss_acc = (losses if loss_acc is None
-                                    else loss_acc + losses)
-                    self._sync()
-                    t_comm = time.perf_counter()
-                    train_s = t_comm - t_round - stage_s
-                    diag: Dict[str, Any] = {}
-                    if algo.communicates and n_comm > 0:
-                        state, z, y, rho, x0, yhat0, diag, okf = \
-                            self.comm_round(state, ci, z, y, rho, x0, yhat0,
-                                            self._comm_mode(nadmm),
-                                            active=comm_m, corrupt=corrupt,
-                                            gbound=self._round_gbound())
-                        diag = {k: float(v) for k, v in diag.items()}
-                        if cfg.update_guard:
-                            self._apply_guard_verdicts(
-                                diag, okf.cpu().numpy(), comm_host)
-                    elif algo.communicates:
-                        # every client out of the exchange: no collective,
-                        # z/y/rho carry over, quarantine still ticks
-                        diag = {"n_active": 0.0}
-                        if cfg.update_guard:
-                            diag.update(guard_trips=0.0, n_ok=0.0)
-                            self._quarantine = np.maximum(
-                                self._quarantine - 1, 0)
-                    self._sync()
-                    comm_s = time.perf_counter() - t_comm
-                    loss_host = loss_acc.cpu().numpy()
-                    rec = dict(nloop=nloop, block=ci, nadmm=nadmm, N=N,
-                               loss=float(np.sum(loss_host)), rho=float(rho),
-                               round_seconds=time.perf_counter() - t_round,
-                               stage_seconds=stage_s, train_seconds=train_s,
-                               comm_seconds=comm_s, **fcounts, **diag)
-                    rec["kernel_launches"] = {
-                        k: v - launches0[k] for k, v in _launch_counts().items()}
-                    if cfg.update_guard and algo.communicates:
-                        # quarantine census at round start
-                        rec["quarantined"] = q_start
-                    if algo.communicates:
-                        rec["bytes_on_wire"] = self.round_bytes_on_wire(
-                            N, diag.get("n_active", K))
-                        if self._fused_coll:
-                            rec["bytes_fused"] = self.round_bytes_fused(N)
-                    if cfg.check_results:
-                        rec["accuracy"] = self.evaluate(state)
-                    history.append(rec)
-                    if nadmm + 1 < cfg.Nadmm:
-                        nxt = (nloop, ci, nadmm + 1)
-                    elif ci + 1 < self.L:
-                        nxt = (nloop, ci + 1, 0)
-                    else:
-                        nxt = (nloop + 1, 0, 0)
-                    if checkpoint_path is not None:
-                        t_ckpt = time.perf_counter()
-                        self._save_midrun(checkpoint_path, state,
-                                          (z, y, rho, x0, yhat0), nxt,
-                                          history)
-                        rec["ckpt_write_seconds"] = (
-                            time.perf_counter() - t_ckpt)
-                    blk = self.block_ids[ci]
-                    msg = (f"block=[{blk[0]},{blk[1]}]({N},{float(rho):f}) "
-                           f"round={nadmm}/{nloop} "
-                           + " ".join(f"{k}={v:e}" for k, v in diag.items()))
-                    if cfg.check_results:
-                        msg += " acc=" + np.array2string(rec["accuracy"],
-                                                         precision=2)
-                    log(msg)
+                    with round_trace(len(history), enabled=profile_on):
+                        state, z, y, rho, x0, yhat0 = self._step_round(
+                            obs, obs_images, state, (z, y, rho, x0, yhat0),
+                            nloop, ci, nadmm, N, history, checkpoint_path,
+                            log)
+        obs.close()
         # write barrier: every queued save is durable before the caller
         # sees the run finished (a failed background save surfaces here)
         self._flush_ckpt_writer()
         return state, history
 
+    def _step_round(self, obs, obs_images, state, blockvars, nloop, ci,
+                    nadmm, N, history, checkpoint_path, log):
+        """One communication round of block ``ci``; returns the state and
+        the block variables (z, y, rho, x0, yhat0) after it."""
+        cfg, algo = self.cfg, self.algo
+        K, dev = cfg.K, self.device
+        partial = self._partial
+        z, y, rho, x0, yhat0 = blockvars
+        t_round = time.perf_counter()
+        launches0 = _launch_counts()
+        self._maybe_preempt(nloop, ci, nadmm, len(history), checkpoint_path)
+        train_m, comm_m, corrupt, comm_host, fcounts = \
+            self._round_activity(nloop, ci, nadmm)
+        n_comm = fcounts.pop("n_comm", 1)
+        cnorm = self.client_norm
+        if self._pop_active:
+            # the cohort rotated: move the compressor/EF rows and point
+            # slot k's normalisation at its shard
+            if leaves(state.comp):
+                state = state._replace(
+                    comp=self._population_swap_comp(state.comp, ci))
+            rows = (self._cohort % K).astype(np.int64)
+            cnorm = torch.from_numpy(self._client_norm_host[rows]).to(dev)
+        if (self._churn_live and self._rejoined_mask.any()
+                and leaves(state.comp)):
+            # rejoining clients are new clients: fresh rows
+            state = state._replace(comp=self._reset_comp_rows(
+                state.comp, ci, self._rejoined_mask))
+        q_start = (int(np.sum(self._quarantine > 0))
+                   if cfg.update_guard else 0)
+        loss_acc = None
+        stage_s = 0.0
+        phase_marks = []
+        for nepoch in range(cfg.Nepoch):
+            t_stage = time.perf_counter()
+            counter = self._epochs_staged
+            xb, yb, wb = self._stage_epoch(
+                last=(nloop == cfg.Nloop - 1 and ci == self.L - 1
+                      and nadmm == cfg.Nadmm - 1
+                      and nepoch == cfg.Nepoch - 1))
+            self._obs_sync(obs)
+            t_staged = time.perf_counter()
+            stage_s += t_staged - t_stage
+            state, losses = self.train_epoch(
+                state, ci, y, z, rho, xb, yb, wb, counter,
+                active=train_m if partial else None, norm=cnorm)
+            loss_acc = losses if loss_acc is None else loss_acc + losses
+            if obs.enabled:
+                self._obs_sync(obs)
+                phase_marks += [("stage", "phase", t_stage, t_staged),
+                                ("train", "phase", t_staged,
+                                 time.perf_counter())]
+        self._sync()
+        t_comm = time.perf_counter()
+        train_s = t_comm - t_round - stage_s
+        diag: Dict[str, Any] = {}
+        self._client_norms = (None, None)
+        if algo.communicates and n_comm > 0:
+            state, z, y, rho, x0, yhat0, diag, okf = self.comm_round(
+                state, ci, z, y, rho, x0, yhat0, self._comm_mode(nadmm),
+                active=comm_m, corrupt=corrupt, gbound=self._round_gbound())
+            diag = {k: float(v) for k, v in diag.items()}
+            if cfg.update_guard:
+                self._apply_guard_verdicts(diag, okf.cpu().numpy(),
+                                           comm_host)
+        elif algo.communicates:
+            # every client out of the exchange: no collective, z/y/rho
+            # carry over, quarantine still ticks
+            diag = {"n_active": 0.0}
+            if cfg.update_guard:
+                diag.update(guard_trips=0.0, n_ok=0.0)
+                self._quarantine = np.maximum(self._quarantine - 1, 0)
+        self._sync()
+        t_done = time.perf_counter()
+        comm_s = t_done - t_comm
+        if obs.enabled and algo.communicates:
+            phase_marks.append(("comm", "phase", t_comm, t_done))
+        loss_host = loss_acc.cpu().numpy()
+        rec = dict(nloop=nloop, block=ci, nadmm=nadmm, N=N,
+                   loss=float(np.sum(loss_host)), rho=float(rho),
+                   round_seconds=time.perf_counter() - t_round,
+                   stage_seconds=stage_s, train_seconds=train_s,
+                   comm_seconds=comm_s, **fcounts, **diag)
+        rec["kernel_launches"] = {
+            k: v - launches0[k] for k, v in _launch_counts().items()}
+        if cfg.update_guard and algo.communicates:
+            # quarantine census at round start
+            rec["quarantined"] = q_start
+        if algo.communicates:
+            rec["bytes_on_wire"] = self.round_bytes_on_wire(
+                N, diag.get("n_active", K))
+            if self._fused_coll:
+                rec["bytes_fused"] = self.round_bytes_fused(N)
+        if cfg.check_results:
+            rec["accuracy"] = self.evaluate(state)
+        history.append(rec)
+        if nadmm + 1 < cfg.Nadmm:
+            nxt = (nloop, ci, nadmm + 1)
+        elif ci + 1 < self.L:
+            nxt = (nloop, ci + 1, 0)
+        else:
+            nxt = (nloop + 1, 0, 0)
+        blockvars = (z, y, rho, x0, yhat0)
+        t_ckpt = None
+        if checkpoint_path is not None:
+            t_ckpt = time.perf_counter()
+            self._save_midrun(checkpoint_path, state, blockvars, nxt,
+                              history)
+            rec["ckpt_write_seconds"] = time.perf_counter() - t_ckpt
+        extra_fields = {}
+        if cfg.async_rounds:
+            extra_fields["async_mode"] = True
+            # the cutoff in force: the control plane may have moved it
+            extra_fields["max_staleness"] = self.cfg.max_staleness
+        if algo.communicates:
+            extra_fields["bytes_dense"] = 4 * N * int(
+                diag.get("n_active", K))
+        cl_nrm, cl_dist = (None if t is None else t.cpu().numpy()
+                           for t in self._client_norms)
+        self._emit_round_obs(
+            obs, rec, round_index=len(history) - 1, t_round=t_round,
+            images=obs_images, extra_fields=extra_fields, N=N,
+            loss_host=loss_host, cl_nrm=cl_nrm, cl_dist=cl_dist,
+            phase_marks=phase_marks, t_ckpt=t_ckpt,
+            checkpoint_path=checkpoint_path, state=state,
+            blockvars=blockvars, nxt=nxt, history=history, log=log)
+        blk = self.block_ids[ci]
+        msg = (f"block=[{blk[0]},{blk[1]}]({N},{float(rho):f}) "
+               f"round={nadmm}/{nloop} "
+               + " ".join(f"{k}={v:e}" for k, v in diag.items()))
+        if cfg.check_results:
+            msg += " acc=" + np.array2string(rec["accuracy"], precision=2)
+        log(msg)
+        return (state,) + blockvars
+
     def run_independent(self, state: Optional[ClientState] = None,
                         log: Callable[[str], None] = print):
         """The no-consensus baseline (no_consensus_multi.py:128-166): the
         whole net trains for Nepoch epochs, Adam created afresh every
-        epoch, no comm; returns (state, history), one record per epoch."""
+        epoch, no comm; returns (state, history), one record per epoch
+        (and one obs ``round`` record an epoch)."""
         try:
-            return self._run_independent(state, log)
+            with profile_ctx(self.cfg.profile_dir, self.device):
+                return self._run_independent(state, log)
+        except BaseException:
+            if self.obs_recorder is not None:
+                self.obs_recorder.close(status="aborted")
+            raise
         finally:
             self.close()
 
@@ -1000,6 +1129,8 @@ class BlockwiseFederatedTrainer(RoundKernel):
         y = torch.zeros(cfg.K, 1, **f32)
         rho = torch.tensor(cfg.admm_rho0, **f32)
         history: List[Dict[str, Any]] = []
+        obs = self._open_obs(resumed=False, rounds_prior=0)
+        obs_images = self._obs_epoch_images()
         for epoch in range(cfg.Nepoch):
             t_epoch = time.perf_counter()
             state = ClientState(state.params, state.batch_stats,
@@ -1018,4 +1149,15 @@ class BlockwiseFederatedTrainer(RoundKernel):
             else:
                 log(f"Epoch {epoch} loss={rec['loss']:e}")
             history.append(rec)
+            if obs.enabled or obs.health is not None:
+                obs.round(dict(rec, round_index=epoch,
+                               round_seconds=rec["epoch_seconds"],
+                               images=obs_images, t_start=t_epoch,
+                               **device_memory_stats(self.device)))
+                if (obs.health is not None
+                        and obs.health.tripped is not None):
+                    # no mid-run checkpoint on this path: checkpoint-abort
+                    # is a plain abort
+                    raise RunHealthAbort(obs.health.tripped)
+        obs.close()
         return state, history

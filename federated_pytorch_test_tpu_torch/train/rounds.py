@@ -1,18 +1,28 @@
 """The robustness shell of a communication round, for any engine.
 
 Port of ``RoundKernel`` of ``federated_pytorch_test_tpu/train/rounds.py``
-without the campaign schedule, the serving plane, the control plane and
-the observability fan-out.  Everything here is host-side bookkeeping:
-seeded mask draws, the quarantine, async, churn and population ledgers,
-and their slice of the mid-run checkpoint meta.  The engine runs the
-round's tensor work and hands the kernel back the guard verdicts.
+without the campaign schedule and the serving plane.  Everything here is
+host-side bookkeeping: seeded mask draws, the quarantine, async, churn
+and population ledgers, their slice of the mid-run checkpoint meta, and
+the round's observability fan-out (the round and client records, the
+phase spans, the health watchdog and the control plane's round-scope
+interventions).  The engine runs the round's tensor work and hands the
+kernel back the guard verdicts.
 
 Host-class contract (what the mixin reads):
 
 ==========================  ===========================================
 ``self.cfg``                a :class:`~.config.FederatedConfig`
+``self.algo``               strategy with ``.name``/``.communicates``
 ``self.D``                  the client mesh's device count
+``self.device``             the trainer's torch device
+``self.obs_engine``         engine tag of the obs records
+``self.obs_run_name``       run name override (drivers set it) or None
 ``self._ckpt_writer``       async checkpoint writer or None
+``round_bytes_on_wire``     ``(N, n_clients) -> int`` wire-byte model
+``_save_midrun``            ``(path, state, blockvars, nxt, history)``
+                            (reached from ``_health_abort``)
+``_flush_ckpt_writer()``    the async writer's barrier
 ``_init_comp_state(ci)``    fresh [K]-stacked compressor state of block
                             ``ci`` (reached from ``_reset_comp_rows``)
 ==========================  ===========================================
@@ -23,16 +33,39 @@ as numpy ``[K]`` float32 arrays; the engine moves them to its device.
 
 from __future__ import annotations
 
+import dataclasses
+import os
+import threading
 from typing import Optional
 
 import numpy as np
 import torch
 
+from federated_pytorch_test_tpu_torch.control.policy import (
+    CONTROL_MODES,
+    CONTROL_POLICIES,
+    ControlRestart,
+    controller_from_config,
+)
+from federated_pytorch_test_tpu_torch.obs import (
+    client_round_fields,
+    device_memory_stats,
+    make_recorder,
+)
+from federated_pytorch_test_tpu_torch.obs.health import (
+    HEALTH_ACTIONS,
+    RunHealthAbort,
+    monitor_from_config,
+)
 from federated_pytorch_test_tpu_torch.parallel.mesh import CollectiveTimeoutError
 from federated_pytorch_test_tpu_torch.population import ClientRegistry
 from federated_pytorch_test_tpu_torch.population.sampler import SAMPLER_CHOICES
 from federated_pytorch_test_tpu_torch.train.faults import FaultSpec
-from federated_pytorch_test_tpu_torch.utils.checkpoint import mesh_geometry_meta
+from federated_pytorch_test_tpu_torch.utils.checkpoint import (
+    NoUsableCheckpointError,
+    finalize_checkpoint,
+    mesh_geometry_meta,
+)
 from federated_pytorch_test_tpu_torch.utils.tree import map_leaves
 
 
@@ -75,6 +108,18 @@ class RoundKernel:
             self._registry = ClientRegistry(
                 cfg.population, cfg.K, cfg.seed,
                 sampling=cfg.cohort_sampling)
+        # the round's per-client host arrays for the client record
+        self._client_round: dict = {}
+        # the last recorder a run opened; control-plane swaps of the
+        # frozen cfg take the lock
+        self.obs_recorder = None
+        self._cfg_swap_lock = threading.Lock()
+
+    @property
+    def _client_probe(self) -> bool:
+        """Client-grain flight recorder on (``cfg.client_ledger``) for an
+        engine that exchanges?"""
+        return bool(self.cfg.client_ledger) and self.algo.communicates
 
     @property
     def _churn_live(self) -> bool:
@@ -155,6 +200,33 @@ class RoundKernel:
         if cfg.guard_norm_mult <= 0:
             raise ValueError(
                 f"guard_norm_mult={cfg.guard_norm_mult} must be positive")
+        if cfg.health_action not in HEALTH_ACTIONS:
+            raise ValueError(
+                f"health_action={cfg.health_action!r} must be one of "
+                f"{HEALTH_ACTIONS}")
+        if cfg.health_streak < 1:
+            raise ValueError(
+                f"health_streak={cfg.health_streak} must be >= 1")
+        if cfg.health_window < 2:
+            raise ValueError(
+                f"health_window={cfg.health_window} must be >= 2")
+        if cfg.health_loss_mult <= 1 or cfg.health_tput_frac <= 0:
+            raise ValueError(
+                "health_loss_mult must be > 1 and health_tput_frac > 0 "
+                f"(got {cfg.health_loss_mult}, {cfg.health_tput_frac})")
+        if cfg.control not in CONTROL_MODES:
+            raise ValueError(
+                f"control={cfg.control!r} must be one of {CONTROL_MODES}")
+        if cfg.control_policy not in CONTROL_POLICIES:
+            raise ValueError(
+                f"control_policy={cfg.control_policy!r} must be one of "
+                f"{CONTROL_POLICIES}")
+        if cfg.max_restarts < 0:
+            raise ValueError(
+                f"max_restarts={cfg.max_restarts} must be >= 0")
+        if cfg.restart_backoff < 0:
+            raise ValueError(
+                f"restart_backoff={cfg.restart_backoff} must be >= 0")
 
     # ------------------------------------------------------------------
     # per-round activity: participation x quarantine x faults x churn
@@ -234,6 +306,8 @@ class RoundKernel:
                 and self._pop_slot_mask is None):
             host = (np.ones(cfg.K, np.float32) if cfg.participation >= 1.0
                     else self._participation_host(nloop, ci, nadmm))
+            if self._client_probe:
+                self._client_round = {"active": host, "weight": host}
             return host, host, zero, host, {}
         base = (np.ones(cfg.K, np.float32) if cfg.participation >= 1.0
                 else self._participation_host(nloop, ci, nadmm))
@@ -257,6 +331,17 @@ class RoundKernel:
                 fault_straggled=int(np.sum(comm * straggle)),
                 fault_corrupted=int(np.sum(corrupt)))
         counts.update(churn_counts)
+        if self._client_probe:
+            self._client_round = {
+                "active": comm, "weight": comm,
+                "quarantine": self._quarantine.copy(),   # round-start census
+                "dropped": base * ok * drop,
+                "straggled": comm * straggle,
+                "corrupted": corrupt,
+            }
+            if self._churn_live:
+                self._client_round["members"] = \
+                    self._members.astype(np.float32)
         return train, comm, corrupt, comm, counts
 
     def _membership_tick(self, nloop: int, ci: int, nadmm: int) -> dict:
@@ -410,6 +495,20 @@ class RoundKernel:
                 fault_straggled=int(np.sum(dispatch * straggle)),
                 fault_corrupted=int(np.sum(corrupt)))
         counts.update(churn_counts or {})
+        if self._client_probe:
+            self._client_round = {
+                "active": admit.astype(np.float32), "weight": w.copy(),
+                "quarantine": self._quarantine.copy(),
+                "dropped": base * ok * free * drop,
+                "straggled": dispatch * straggle,
+                "corrupted": corrupt,
+                # -1: no arrival this round
+                "staleness": np.where(arrive, stale, -1).astype(np.int64),
+                "admitted": admit.astype(np.float32),
+            }
+            if self._churn_live:
+                self._client_round["members"] = \
+                    self._members.astype(np.float32)
         return train, w, corrupt, w, counts
 
     # ------------------------------------------------------------------
@@ -430,6 +529,8 @@ class RoundKernel:
         cfg = self.cfg
         okf_h = np.asarray(okf)
         tripped = (comm_host > 0) & (okf_h < 0.5)
+        if self._client_probe:
+            self._client_round["guard_ok"] = okf_h
         self._quarantine = np.maximum(self._quarantine - 1, 0)
         if cfg.quarantine_rounds > 0:
             self._quarantine[tripped] = cfg.quarantine_rounds
@@ -521,3 +622,154 @@ class RoundKernel:
         if self._registry is not None:
             self._registry.reset_block()
             self._pop_comp_prev = None
+
+    # ------------------------------------------------------------------
+    # observability: recorder, client record, spans, health, control
+    # ------------------------------------------------------------------
+    def _obs_sync(self, obs) -> None:
+        """Close out queued device work at an obs phase boundary, so that
+        the phase spans measure execution; only while a recorder writes
+        (with obs off the round keeps its one sync)."""
+        if obs.enabled and self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _open_obs(self, *, resumed: bool, rounds_prior: int):
+        """Open this run's recorder (sinks from ``cfg.obs_sinks`` and
+        ``cfg.obs_dir``; "auto" without a directory writes nothing) and
+        attach the health watchdog, then the controller (the controller
+        sees round N before round N's alerts: file order)."""
+        cfg = self.cfg
+        run_name = (self.obs_run_name
+                    or f"{self.obs_engine}_{self.algo.name}")
+        rec = make_recorder(cfg.obs_sinks, cfg.obs_dir, run_name=run_name,
+                            engine=self.obs_engine,
+                            algorithm=self.algo.name, device=self.device)
+        rec.open(config=dataclasses.asdict(cfg),
+                 mesh_shape={"clients": self.D}, resumed=resumed,
+                 rounds_prior=rounds_prior)
+        monitor_from_config(cfg, recorder=rec)
+        controller_from_config(cfg, recorder=rec)
+        self.obs_recorder = rec
+        return rec
+
+    def _emit_client_record(self, obs, round_index: int, N: int,
+                            loss_host, cl_nrm, cl_dist) -> None:
+        """The round's ``client`` record from the activity and guard stash
+        and the per-client norms and losses the round already fetched."""
+        cr = self._client_round
+        fields = client_round_fields(
+            round_index, self.cfg.K,
+            update_norm=cl_nrm, dist_z=cl_dist, loss=loss_host,
+            weight=cr.get("weight"), active=cr.get("active"),
+            guard_ok=cr.get("guard_ok"), quarantine=cr.get("quarantine"),
+            dropped=cr.get("dropped"), straggled=cr.get("straggled"),
+            corrupted=cr.get("corrupted"), staleness=cr.get("staleness"),
+            admitted=cr.get("admitted"), members=cr.get("members"),
+            registry_ids=self._cohort if self._pop_active else None,
+            payload_bytes=self.round_bytes_on_wire(N, 1))
+        obs.client_event(fields)
+        self._client_round = {}
+
+    def _emit_round_obs(self, obs, rec, *, round_index, t_round,
+                        images=None, extra_fields=None, N=0,
+                        loss_host=None, cl_nrm=None, cl_dist=None,
+                        phase_marks=(), t_ckpt=None,
+                        checkpoint_path=None, state=None, blockvars=None,
+                        nxt=None, history=None, log=print):
+        """One round's observability fan-out: the round record, the
+        client record, the phase and checkpoint spans, then the health
+        watchdog and the control plane (a fatal health trip owns the
+        exit, the supervisor the recovery).  ``phase_marks`` is
+        ``[(name, cat, t0, t1), ...]``."""
+        if not (obs.enabled or obs.health is not None
+                or obs.control is not None):
+            return
+        extra = dict(rec, round_index=round_index, t_start=t_round,
+                     **device_memory_stats(self.device))
+        if images is not None:
+            extra["images"] = images
+        if extra_fields:
+            extra.update(extra_fields)
+        rrec = obs.round(extra)
+        if self._client_probe:
+            self._emit_client_record(obs, round_index, N, loss_host,
+                                     cl_nrm, cl_dist)
+        if obs.enabled:
+            rspan = (rrec or {}).get("span_id")
+            for nm, cat, s0, s1 in phase_marks:
+                obs.span(nm, s0, s1, cat=cat, round_index=round_index,
+                         parent_span=rspan)
+            if t_ckpt is not None:
+                # the save runs after round_seconds is measured: its span
+                # hangs off the run span
+                obs.span("ckpt", t_ckpt,
+                         t_ckpt + rec["ckpt_write_seconds"],
+                         cat="ckpt", round_index=round_index)
+        if obs.health is not None and obs.health.tripped is not None:
+            self._health_abort(obs, checkpoint_path, state, blockvars,
+                               nxt, history, log)
+        if obs.control is not None:
+            self._apply_round_control(obs, checkpoint_path, log)
+
+    def _health_abort(self, obs, checkpoint_path, state, blockvars, nxt,
+                      history, log=print):
+        """A watchdog rule tripped under a fatal ``--health-action``.
+        ``checkpoint-abort`` first makes sure a verified checkpoint is on
+        disk: the round's mid-run slot, or a one-off save at
+        ``<checkpoint_dir>/<run_name>_health_abort``.  Always ends in
+        :class:`RunHealthAbort`."""
+        alert = obs.health.tripped
+        log(f"health: rule {alert.get('rule')!r} tripped on round "
+            f"{alert.get('round_index')} (action={obs.health.action})")
+        if obs.health.action == "checkpoint-abort":
+            path = checkpoint_path
+            if path is None:
+                run_name = (self.obs_run_name
+                            or f"{self.obs_engine}_{self.algo.name}")
+                path = os.path.join(self.cfg.checkpoint_dir,
+                                    f"{run_name}_health_abort")
+                self._save_midrun(path, state, blockvars, nxt, history)
+            self._flush_ckpt_writer()
+            try:
+                slot = finalize_checkpoint(path)
+            except NoUsableCheckpointError as e:
+                log(f"WARNING: health: no usable checkpoint to finalize "
+                    f"({e}); aborting without one")
+            else:
+                log(f"health: final checkpoint verified at {slot}")
+        raise RunHealthAbort(alert)
+
+    def _apply_round_control(self, obs, checkpoint_path, log=print):
+        """Act-mode round-scope decisions at the round boundary:
+        ``max_staleness`` and ``cohort_frac`` are host knobs read every
+        round, so they apply live; a ``serve_swap`` is skipped (serving is
+        not ported); a ``checkpoint_restart`` verifies the newest slot and
+        raises :class:`ControlRestart` to the supervisor."""
+        ctl = obs.control
+        for d in ctl.take_round():
+            if d.param == "max_staleness":
+                with self._cfg_swap_lock:
+                    old = self.cfg.max_staleness
+                    self.cfg = dataclasses.replace(
+                        self.cfg, max_staleness=int(d.to_value))
+                log(f"control: {d.intervention} max_staleness "
+                    f"{old} -> {self.cfg.max_staleness} ({d.reason})")
+            elif d.param == "cohort_frac":
+                if not self._pop_active:
+                    log("control: skip cohort_frac (population mode "
+                        "is off for this run)")
+                    continue
+                old_f = self._cohort_frac
+                self._cohort_frac = float(d.to_value)
+                log(f"control: {d.intervention} cohort_frac "
+                    f"{old_f} -> {self._cohort_frac} ({d.reason})")
+            elif d.param == "serve_swap":
+                log("control: skip serve_swap (serving is not ported)")
+        d = ctl.take_restart()
+        if d is not None:
+            self._flush_ckpt_writer()
+            slot = finalize_checkpoint(checkpoint_path)
+            log(f"control: checkpoint-then-restart from verified {slot} "
+                f"({d.reason})")
+            raise ControlRestart(
+                d.fields(source="policy", mode="act", applied=True))

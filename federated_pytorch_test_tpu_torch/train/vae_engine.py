@@ -31,6 +31,7 @@ class VAETrainer(BlockwiseFederatedTrainer):
     """
 
     sweep = "layers"
+    obs_engine = "vae"
 
     def model_loss(self, p, bs, xb, yb, wb, noise=None):
         # the sum-reduction ELBO decomposes per sample: wb weights the pad
@@ -58,6 +59,8 @@ class VAECLTrainer(BlockwiseFederatedTrainer):
     * L2 ``lambda2`` on the flat trainable vector of every block, no L1
       (federated_vae_cl.py:228-230).
     """
+
+    obs_engine = "vae_cl"
 
     def optimizer_for_block(self, ci):
         return "adam" if ci == 2 else "lbfgs"

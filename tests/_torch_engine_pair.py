@@ -52,11 +52,12 @@ def _spread(tree, scale: float, seed: int):
 
 def run_both(jmodel, tmodel, jalgo, talgo, cfg: dict, blocks: int = 2,
              independent: bool = False, spread: float = 0.0,
-             replay=None) -> dict:
+             replay=None, port_cfg=None) -> dict:
     """Both engines on ``cfg`` (over :data:`BASE`) from the same weights,
     the first ``blocks`` blocks.  ``spread``: start every client from its
     own seeded offset of the common init.  ``replay(tt)`` prepares the port
-    trainer before its run (a seam for random streams)."""
+    trainer before its run (a seam for random streams).  ``port_cfg``:
+    fields of the port's config that differ (its obs directory)."""
     cfg = dict(BASE, **cfg)
     with force_comm_kernels_impl("pallas_interpret"):
         jt = JTrainer(jmodel(), JConfig(device_data=False, **cfg),
@@ -69,7 +70,8 @@ def run_both(jmodel, tmodel, jalgo, talgo, cfg: dict, blocks: int = 2,
             jt.params0 = stage_tree_global(p0, client_sharding(jt.mesh))
         run = jt.run_independent if independent else jt.run
         jstate, jhist = run(log=SILENT)
-    tt = TTrainer(tmodel(), TConfig(device="cpu", **cfg), TData(**DATA), talgo)
+    tt = TTrainer(tmodel(), TConfig(device="cpu", **dict(cfg, **(port_cfg or {}))),
+                  TData(**DATA), talgo)
     tt.L = blocks
     if replay is not None:
         replay(tt)

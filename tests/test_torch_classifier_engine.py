@@ -296,7 +296,7 @@ def test_driver_defaults_are_the_reference_ones():
     (["--campaign-spec", "none"], "not ported"),
     (["--device-data"], "not ported"),
     (["--fused-rounds"], "not ported"),
-    (["--max-restarts", "2"], "not ported"),
+    (["--overlap-round"], "not ported"),
 ])
 def test_unported_knobs_are_refused(argv, match, capsys):
     with pytest.raises(SystemExit):

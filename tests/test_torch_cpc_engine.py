@@ -14,6 +14,7 @@ are integers and must be equal.
 import jax
 import numpy as np
 import pytest
+from _torch_tmp_cwd import tmp_cwd  # noqa: F401
 
 from federated_pytorch_test_tpu.data.lofar import CPCDataSource as JSource
 from federated_pytorch_test_tpu.train.cpc_engine import CPCTrainer as JTrainer

@@ -222,6 +222,17 @@ NEW_FLAGS = [
     (["--async-checkpoint"], "async_checkpoint", True),
     (["--load-model"], "load_model", True),
     (["--no-save-model"], "save_model", False),
+    (["--obs-dir", "/tmp/obs"], "obs_dir", "/tmp/obs"),
+    (["--obs-sinks", "jsonl,memory"], "obs_sinks", "jsonl,memory"),
+    (["--health-action", "abort"], "health_action", "abort"),
+    (["--health-streak", "1"], "health_streak", 1),
+    (["--health-residual"], "health_residual", True),
+    (["--control", "act"], "control", "act"),
+    (["--control-policy", "eager"], "control_policy", "eager"),
+    (["--max-restarts", "2"], "max_restarts", 2),
+    (["--restart-backoff", "0.5"], "restart_backoff", 0.5),
+    (["--profile-dir", "/tmp/prof"], "profile_dir", "/tmp/prof"),
+    (["--no-client-ledger"], "client_ledger", False),
 ]
 
 
