@@ -181,8 +181,8 @@ which stops the script with a non-zero exit if it fails:
 23. slice 6, async rounds with churn: ``drivers.federated_multi`` on
     ResNet18 with ``--compress q8 --error-feedback --fused-collective
     --num-devices 2 --async-rounds --max-staleness 2 --staleness-alpha 0.5
-    --fault-spec delay=0.4,drop=0.1,join=0.2,leave=0.1,seed=5`` (Nadmm 3,
-    30 rounds), the B1/B2 counts set to 0 just before and read just after.
+    --fault-spec delay=0.4,drop=0.1,join=0.2,leave=0.1,seed=5`` (Nadmm 3 ->
+    2, 20 rounds), the B1/B2 counts set to 0 just before and read just after.
     ``async_arrived``, ``admission_rejected``, ``buffer_depth``,
     ``staleness_hist``, ``members_active``, ``joined`` and ``left`` equal a
     numpy replay of the schedule in every round; B1 and B2 launched in
@@ -257,14 +257,43 @@ which stops the script with a non-zero exit if it fails:
     quarantine_rounds -> 2}, each at ladder stage 1; no control record
     with ``time_unix``; the port's replay returns 0 on the stream and 1 on
     a copy with one backoff forged; B1 and B2 launched in every exchanging
-    round.
+    round;
+29. slice 8, serving at full width: slice 2's krum consensus (ResNet18,
+    K=10, D=2, the data cuts) with Nadmm 1 (10 rounds) and ``--serve-spec
+    qps=8,round_minutes=0.5,buckets=8+32+128,swap_every=2,drift_at=6,
+    seed=5 --control act --health-action warn --health-window 2
+    --health-streak 1``, the B3 count set to 0 just before and read just
+    after.  One ``serve`` record a round whose pure fields equal
+    ``ServeSchedule.record_fields``; the port's replay returns 0 on the
+    stream; the publishes fall on the schedule's swap rounds plus the
+    forced refreshes (ceil(10 / 2) + 1), and the last version is the
+    schedule's; a ``serve_drift`` alert, a ``serve_swap`` control on its
+    round and ``forced_refresh`` on the next round's serve record; the
+    predictor's shapes within the buckets; the served logits of one pool
+    batch a bucket within ``SERVE_LOGIT_RTOL`` of a float32 CPU forward of
+    the same consensus; B3 launched every round.  Prints the latencies,
+    QPS and swap gaps the card measured;
+30. slice 8, a soak campaign at full width through the soak harness:
+    ``drivers.federated_multi --model resnet18 --compress q8
+    --error-feedback --fused-collective --num-devices 2 --update-guard``
+    with ``--campaign-spec`` ``SOAK_SPEC`` (5 virtual hours, storms,
+    bursts, churn, a preemption at hour 3) ``--campaign-accel 3600
+    --max-restarts 1 --restart-backoff 1`` (Nadmm 1, 10 rounds), the B1/B2
+    counts set to 0 just before and read just after.  Exactly one
+    ``restart``, at round 6 with the seeded backoff; the port's replay
+    accepts the two-segment stream (campaign and supervisor records);
+    every round's ``n_active``, ``fault_*``, ``members_active``,
+    ``joined`` and ``left`` equal a numpy replay of the schedule's draws
+    (the guard's verdicts read from the client records); the parameters
+    and losses finite; the virtual clock waited the recorded backoff over
+    3600 in wall time; B1 and B2 launched in every exchanging round.
 
 Phases 15-21, 24 and 25 run no hand-written kernel (top-k, the
 scatter-add, the L-BFGS update and the VAEs are stock PyTorch, as in the
 JAX package they are XLA; phase 24's q8 exchange is not fused); the
 kernel line's launches are those of phases 5, 26 and 27 (B4, B5; phase
-27's counted in its children), phases 8, 22 and 26 (B3) and phases 12,
-23 and 28 (B1, B2).  Every driver phase before 26 passes
+27's counted in its children), phases 8, 22, 26 and 29 (B3) and phases
+12, 23, 28 and 30 (B1, B2).  Every driver phase before 26 passes
 ``--obs-sinks none``.
 
 The line before the last is the per-kernel JSON record (with each
@@ -424,16 +453,17 @@ KRUM_ATTACK_ARGV = [
     "--n-train", "1280", "--n-test", "1000", "--no-save-model",
     "--obs-sinks", "none"]
 #: phase 23: buffered async rounds with transit delay and churn over the
-#: q8 fused collective (FedAvg, Nadmm 3 -> 3 kept: 30 rounds)
+#: q8 fused collective (FedAvg, Nadmm 3 -> 2: 20 rounds, staleness 0 or 1;
+#: the script's time went to slice 8's phases)
 ASYNC_ARGV = [
     "--device", "cuda", "--model", "resnet18", "--compress", "q8",
     "--error-feedback", "--fused-collective", "--num-devices", "2",
     "--async-rounds", "--max-staleness", "2", "--staleness-alpha", "0.5",
     "--fault-spec", "delay=0.4,drop=0.1,join=0.2,leave=0.1,seed=5",
-    "--Nloop", "1", "--Nadmm", "3", "--n-train", "1280", "--n-test", "1000",
+    "--Nloop", "1", "--Nadmm", "2", "--n-train", "1280", "--n-test", "1000",
     "--no-save-model",
     "--obs-sinks", "none"]
-ASYNC_ROUNDS = 30
+ASYNC_ROUNDS = 20
 #: phase 24: 40 registered clients over the K=10 slots, stratified cohorts
 #: (FedAvg with q8 + error feedback, Nadmm 3 -> 2: 20 rounds)
 POPULATION_ARGV = [
@@ -485,6 +515,45 @@ CHAOS_ARGV = [
     "--control", "act", "--max-restarts", "2", "--restart-backoff", "0",
     "--Nloop", "1", "--Nadmm", "2", "--n-train", "1280", "--n-test", "1000",
     "--no-save-model"]
+#: phases 29-30 (slice 8).  Phase 29: slice 2's krum consensus (ResNet18,
+#: K=10, D=2, the data cuts, Nadmm 1: 10 rounds) serving its consensus
+#: every round: 216-264 seeded requests a round in buckets of 8, 32 and
+#: 128, a hot-swap every 2 rounds, a total label shift from round 6 (the
+#: served accuracy is near 1 by round 2 on the synthetic data), the act
+#: mode control plane and a warn watchdog warmed over 2 rounds
+SERVE_SPEC = ("qps=8,round_minutes=0.5,buckets=8+32+128,swap_every=2,"
+              "drift_at=6,seed=5")
+SERVE_ARGV = [
+    "--device", "cuda", "--model", "resnet18", "--robust-agg", "krum",
+    "--robust-chunked", "--num-devices", "2", "--serve-spec", SERVE_SPEC,
+    "--control", "act", "--health-action", "warn", "--health-window", "2",
+    "--health-streak", "1", "--Nloop", "1", "--Nadmm", "1", "--n-train",
+    "1280", "--n-test", "1000", "--no-save-model"]
+SERVE_ROUNDS = 10
+#: the served logits of one pool batch a bucket, the card's consensus vs a
+#: float32 CPU forward of the same consensus: max |card - cpu| <=
+#: SERVE_LOGIT_RTOL * max |cpu| (float32 convolutions summed in other
+#: orders through 18 layers, TF32 off)
+SERVE_LOGIT_RTOL = 1e-4
+#: phase 30: FedAvg on ResNet18 over the q8 fused collective with the
+#: guard, under a 5-virtual-hour soak campaign (10 rounds of 30 virtual
+#: minutes, slice 2's cuts, Nadmm 1) through the soak harness.  Seed 2 puts
+#: straggler storms at hours 0 and 3 and corruption bursts at hours 1 and
+#: 2; the diurnal trough keeps the drop probability at 0.26-0.34; the
+#: preemption at hour 3 lands at round 6, survived by one restart whose
+#: backoff the virtual clock divides by 3600
+SOAK_SPEC = ("hours=6,round_minutes=30,diurnal=0.3,drop=0.05,join=0.2,"
+             "leave=0.05,storm=0.5,storm_len=1,burst=0.5,burst_len=1,"
+             "burst_corrupt=0.3,mode=scale,scale=100,preempt_at=3,seed=2")
+SOAK_ACCEL = 3600.0
+SOAK_ARGV = [
+    "--device", "cuda", "--model", "resnet18", "--compress", "q8",
+    "--error-feedback", "--fused-collective", "--num-devices", "2",
+    "--update-guard", "--campaign-spec", SOAK_SPEC, "--campaign-accel",
+    str(SOAK_ACCEL), "--max-restarts", "1", "--restart-backoff", "1",
+    "--Nloop", "1", "--Nadmm", "1", "--n-train", "1280", "--n-test", "1000",
+    "--no-save-model"]
+SOAK_ROUNDS, SOAK_PREEMPT_ROUND = 10, 6
 QUANTIZE_SITE = "federated_pytorch_test_tpu/ops/comm_kernels.py:124"
 DEQUANT_SITE = "federated_pytorch_test_tpu/ops/comm_kernels.py:182"
 #: phase 9's separated case: each moved client's offset has squared norm
@@ -3068,6 +3137,267 @@ def run_chaos(dev) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# slice 8: the serving plane and the soak campaigns (phases 29-30)
+# ---------------------------------------------------------------------------
+def run_serving(dev) -> int:
+    """Phase 29; returns the Gram launches of the run."""
+    import math
+    import shutil
+    import tempfile
+
+    import torch
+
+    from federated_pytorch_test_tpu_torch.control.replay import main as replay
+    from federated_pytorch_test_tpu_torch.drivers import consensus_multi
+    from federated_pytorch_test_tpu_torch.ops import gram
+    from federated_pytorch_test_tpu_torch.serve import (
+        SERVE_FIELDS,
+        ServeSchedule,
+    )
+    from federated_pytorch_test_tpu_torch.train.engine import _normalize_u8
+    from federated_pytorch_test_tpu_torch.utils.tree import tree_map
+
+    work = tempfile.mkdtemp(prefix="serve-", dir=os.path.join(ROOT, "build"))
+    try:
+        gram.LAUNCHES["gram"] = 0
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        trainer, state, history = consensus_multi.main(
+            [*SERVE_ARGV, "--checkpoint-dir", work], log=log)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = gram.LAUNCHES["gram"]
+        path = os.path.join(work, "obs", "consensus_multi.jsonl")
+        records = read_stream(path)
+        ok = replay([path])
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    sched = ServeSchedule.parse(SERVE_SPEC)
+    plane = trainer._serve_plane
+    serves = [r for r in records if r["event"] == "serve"]
+    log(f"serving: {len(history)} rounds in {wall:.2f} s, gram launches "
+        f"{launches}, max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated(dev)} B")
+    for r in serves:
+        log(json.dumps({k: r.get(k) for k in (
+            "round_index", "weights_version", "requests", "batches",
+            "padded_slots", "swap", "drift_injected", "serve_accuracy",
+            "drift_score", "serve_p50_ms", "serve_p99_ms", "serve_qps",
+            "swap_gap_seconds", "forced_refresh")}))
+    for r in records:
+        if r["event"] in ("alert", "control"):
+            log(json.dumps({k: r.get(k) for k in (
+                "event", "rule", "intervention", "param", "round_index",
+                "observed", "threshold")}))
+    lat = {k: [r[k] for r in serves] for k in (
+        "serve_p50_ms", "serve_p99_ms", "serve_qps")}
+    gaps = [r["swap_gap_seconds"] for r in serves if "swap_gap_seconds" in r]
+    log(f"serving on the card: serve_p50_ms median "
+        f"{statistics.median(lat['serve_p50_ms'])}, serve_p99_ms median "
+        f"{statistics.median(lat['serve_p99_ms'])} (max "
+        f"{max(lat['serve_p99_ms'])}), serve_qps median "
+        f"{statistics.median(lat['serve_qps'])}, swap_gap_seconds "
+        f"{gaps}; predictor dispatches {plane['pred'].dispatches}, shapes "
+        f"{sorted(plane['pred'].shapes_seen)}")
+    if len(history) != SERVE_ROUNDS or len(serves) != SERVE_ROUNDS:
+        fail(f"expected {SERVE_ROUNDS} rounds and serve records, got "
+             f"{len(history)} and {len(serves)}")
+    for i, r in enumerate(serves):
+        got = {k: r[k] for k in SERVE_FIELDS}
+        if got != sched.record_fields(i):
+            fail(f"serve record {i}: {got}, the schedule "
+                 f"{sched.record_fields(i)}")
+    log(f"serving: control.replay {ok} on the stream")
+    if ok != 0:
+        fail("the port's control.replay refuses the serving stream")
+    forced = [r["round_index"] for r in serves if r.get("forced_refresh")]
+    published = [r["round_index"] for r in serves
+                 if "swap_gap_seconds" in r]
+    want = sorted({i for i in range(SERVE_ROUNDS) if sched.swap(i)}
+                  | set(forced))
+    n_swap = math.ceil(SERVE_ROUNDS / sched.swap_every)
+    if (published != want or plane["buffer"].swaps != len(want)
+            or len(want) != n_swap + sum(not sched.swap(i) for i in forced)):
+        fail(f"publishes at rounds {published} ({plane['buffer'].swaps} "
+             f"swaps), expected {want}")
+    if plane["buffer"].version != sched.weights_version(SERVE_ROUNDS - 1):
+        fail(f"the last published version {plane['buffer'].version}")
+    alerts = [r["round_index"] for r in records if r["event"] == "alert"
+              and r["rule"] == "serve_drift"]
+    swaps = [r["round_index"] for r in records if r["event"] == "control"
+             and r.get("param") == "serve_swap"]
+    log(f"serving: serve_drift alerts {alerts}, serve_swap controls "
+        f"{swaps}, forced refreshes {forced}")
+    if not (alerts and swaps and forced and min(alerts) >= sched.drift_at
+            and swaps[0] == alerts[0] and forced[0] == swaps[0] + 1):
+        fail("the drift chain (serve_drift alert, serve_swap control, "
+             "forced refresh on the next round) did not run through")
+    buckets = {(b, 32, 32, 3) for b in sched.buckets}
+    if not plane["pred"].shapes_seen <= buckets:
+        fail(f"served shapes {plane['pred'].shapes_seen} outside the "
+             "buckets")
+    for rec in history:
+        if rec["kernel_launches"]["gram"] < 1:
+            fail(f"the Gram kernel was not launched in round {rec}")
+    # the card's consensus against a float32 CPU forward of the same weights
+    _, weights = plane["buffer"].acquire()
+    cpu_w = [tree_map(lambda t: t.detach().cpu(), w) for w in weights]
+    norm = torch.from_numpy(np.asarray(
+        trainer._client_norm_host.mean(axis=0), np.float32))
+    for b in sched.buckets:
+        x = plane["pool_x"][:b]
+        card = plane["pred"](weights, x)
+        with torch.inference_mode():
+            cpu = trainer.model.apply(
+                *cpu_w, _normalize_u8(torch.from_numpy(x), norm),
+                train=False)[0].numpy()
+        err = float(np.abs(card - cpu).max() / np.abs(cpu).max())
+        log(f"serving: bucket {b}, served logits vs the CPU forward: max "
+            f"|diff| / max |cpu| {err:.3e} (limit {SERVE_LOGIT_RTOL})")
+        if not err <= SERVE_LOGIT_RTOL:
+            fail(f"bucket {b}: the served logits differ from the CPU "
+                 f"forward by {err:.3e}")
+    return launches
+
+
+def campaign_replay(cfg, sched, history, verdicts) -> list:
+    """The numpy replay of the campaign's draws under the guard (no
+    participation, population or async): per round, the count fields the
+    round record must carry.  ``verdicts``: round index -> the guard's [K]
+    verdicts of the stream's client record."""
+    K = cfg.K
+    members = np.ones(K, bool)
+    quarantine = np.zeros(K, np.int64)
+    out = []
+    for r, rec in enumerate(history):
+        nloop, ci, nadmm = rec["nloop"], rec["block"], rec["nadmm"]
+        spec = sched.spec_for(sched.window(r))
+        new = spec.round_churn(members, nloop, ci, nadmm)
+        joined, left = new & ~members, members & ~new
+        quarantine[left] = 0
+        members = new
+        base = members.astype(np.float32)
+        ok = (quarantine == 0).astype(np.float32)
+        drop, straggle, corrupt = spec.round_faults(K, nloop, ci, nadmm)
+        comm = base * ok * (1.0 - drop)
+        out.append({
+            "n_active": float(comm.sum()),
+            "fault_dropped": int(np.sum(base * ok * drop)),
+            "fault_straggled": int(np.sum(comm * straggle)),
+            "fault_corrupted": int(np.sum(corrupt * comm)),
+            "members_active": int(members.sum()),
+            "joined": int(joined.sum()), "left": int(left.sum())})
+        okf = np.asarray(verdicts.get(r, np.ones(K)), np.float32)
+        quarantine = np.maximum(quarantine - 1, 0)
+        quarantine[(comm > 0) & (okf < 0.5)] = cfg.quarantine_rounds
+    return out
+
+
+def run_soak_campaign(dev) -> dict:
+    """Phase 30; returns the B1/B2 launches of the run."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from federated_pytorch_test_tpu_torch.campaign.schedule import (
+        CampaignSchedule,
+    )
+    from federated_pytorch_test_tpu_torch.control.replay import replay
+    from federated_pytorch_test_tpu_torch.control.supervisor import (
+        restart_backoff_seconds,
+    )
+    from federated_pytorch_test_tpu_torch.drivers import common, federated_multi
+    from federated_pytorch_test_tpu_torch.ops import quant
+    from federated_pytorch_test_tpu_torch.utils.tree import leaves
+
+    sched = CampaignSchedule.parse(SOAK_SPEC)
+    windows = [sched.window(r) for r in range(SOAK_ROUNDS)]
+    for w in windows:
+        log(json.dumps({k: getattr(w, k) for k in (
+            "round_index", "hour", "phase", "arrival_frac", "drop_p",
+            "straggle_p", "corrupt_p", "join_p", "leave_p", "storm",
+            "burst", "preempt_now")}))
+    if not (any(w.storm for w in windows) and any(w.burst for w in windows)):
+        fail("the campaign's run holds no storm or no burst")
+    soak, clocks = common.run_soak, []
+
+    def capturing(*args, **kw):
+        result, clock = soak(*args, **kw)
+        clocks.append(clock)
+        return result, clock
+
+    work = tempfile.mkdtemp(prefix="soak-", dir=os.path.join(ROOT, "build"))
+    common.run_soak = capturing
+    try:
+        for k in quant.LAUNCHES:
+            quant.LAUNCHES[k] = 0
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        trainer, state, history = federated_multi.main(
+            [*SOAK_ARGV, "--checkpoint-dir", work], log=log)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(quant.LAUNCHES)
+        records = read_stream(os.path.join(work, "obs",
+                                           "federated_multi.jsonl"))
+    finally:
+        common.run_soak = soak
+        shutil.rmtree(work, ignore_errors=True)
+    cfg = trainer.cfg
+    fields = ("n_active", "fault_dropped", "fault_straggled",
+              "fault_corrupted", "members_active", "joined", "left")
+    log(f"soak: {len(history)} rounds in {wall:.2f} s, launches {launches}, "
+        f"max_memory_allocated {torch.cuda.max_memory_allocated(dev)} B, "
+        f"{clocks[0]!r}" if clocks else "soak: no clock")
+    for rec in history:
+        log(json.dumps({k: rec.get(k) for k in (
+            "block", "N", "loss", *fields, "guard_trips", "quarantined",
+            "round_seconds", "ckpt_write_seconds", "kernel_launches")}))
+    if len(history) != SOAK_ROUNDS:
+        fail(f"expected {SOAK_ROUNDS} rounds, got {len(history)}")
+    if not all(bool(torch.isfinite(t).all()) for t in leaves(state.params)):
+        fail("the soak run's final parameters are not finite")
+    if not all(np.isfinite(rec["loss"]) for rec in history):
+        fail("a soak round's loss is not finite")
+    sup = [r for r in records if r["event"] == "control"
+           and r["source"] == "supervisor"]
+    restarts = [(r["round_index"], r["attempt"], r["backoff_seconds"])
+                for r in sup if r["intervention"] == "restart"]
+    log(f"soak: supervisor records {[r['intervention'] for r in sup]}, "
+        f"restarts {restarts}")
+    want_backoff = restart_backoff_seconds(cfg.restart_backoff, cfg.seed, 1)
+    if restarts != [(SOAK_PREEMPT_ROUND, 1, want_backoff)]:
+        fail(f"restarts {restarts}, not one at round {SOAK_PREEMPT_ROUND} "
+             f"with backoff {want_backoff}")
+    errors, stats = replay(records)
+    log(f"soak: replay {stats}, errors {errors}")
+    if errors or not stats["campaign_records"] or stats["segments"] != 2:
+        fail("the port's control.replay does not accept the campaign stream")
+    verdicts = {r["round_index"]: r["guard_ok"] for r in records
+                if r["event"] == "client" and "guard_ok" in r}
+    for r, (rec, want) in enumerate(zip(history, campaign_replay(
+            cfg, sched, history, verdicts))):
+        got = {k: rec.get(k) for k in fields}
+        if got != want:
+            fail(f"round {r}: {got}, the replay {want}")
+    clock = clocks[0]
+    if not (clock.accel == SOAK_ACCEL and clock.virtual_slept == want_backoff
+            and clock.wall_slept == want_backoff / SOAK_ACCEL):
+        fail(f"the virtual clock {clock!r} does not divide the recorded "
+             f"backoff {want_backoff} by {SOAK_ACCEL}")
+    for rec in history:
+        kl = rec["kernel_launches"]
+        if rec["n_active"] > 0 and not (
+                kl["quantize_chunks"] > 0 and kl["dequant_add"] > 0):
+            fail(f"B1/B2 not launched in exchanging round {rec['block']}: "
+                 f"{kl}")
+    if min(launches.values()) < 1:
+        fail(f"B1/B2 not launched over the soak: {launches}")
+    return launches
+
+
 def main() -> None:
     import torch
 
@@ -3111,6 +3441,9 @@ def main() -> None:
         launches[k] += cpc[k] + children[k]
     gram_launches += cpc["gram"]
     for k, v in run_chaos(dev).items():
+        quant_launches[k] += v
+    gram_launches += run_serving(dev)
+    for k, v in run_soak_campaign(dev).items():
         quant_launches[k] += v
     log(f"summary: krum's selection on the raw y + rho*x stack, kernel vs "
         f"gram_plain: {raw_krum}")

@@ -1,7 +1,7 @@
 """Closed-loop federation control plane (default OFF).
 
 Port of ``federated_pytorch_test_tpu/control/`` (without the elastic
-``reshape`` rung and the campaign and serving replay checks).
+``reshape`` rung, which waits for the multi-card mesh).
 
 Three cooperating parts (README "Control plane"):
 

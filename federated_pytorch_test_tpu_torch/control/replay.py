@@ -1,9 +1,9 @@
 """Replay CLI: re-derive control decisions from a recorded stream.
 
 Port of ``federated_pytorch_test_tpu/control/replay.py`` with the checks
-of what the port emits: policy decisions, supervisor records and
-population cohorts (the campaign, serving and reshape checks wait for
-their planes).
+of what the port emits: policy decisions, supervisor records, population
+cohorts, campaign windows and serving rounds (the elastic reshape check
+waits for the multi-card mesh).
 
 ``python -m federated_pytorch_test_tpu_torch.control.replay run.jsonl``
 reads an obs JSONL artifact, rebuilds the :class:`~.policy.ControlPolicy`
@@ -14,8 +14,11 @@ Supervisor records are checked too: the seeded backoff of every
 ``restart`` record is recomputed from (``restart_backoff``, ``seed``,
 ``attempt``) and the attempt numbers must count up from 1.  Under
 population federation every ``client`` record's ``registry_ids`` must
-re-derive from the seeded sampler.  Exit 0 when every recorded decision
-is reproduced bit-exactly; exit 1 (with a diff) on any divergence.
+re-derive from the seeded sampler; every ``campaign`` record must equal the
+schedule window of the header's ``campaign_spec``, and the pure fields of
+every ``serve`` record the plan of its ``serve_spec``.  Exit 0 when every
+recorded decision is reproduced bit-exactly; exit 1 (with a diff) on any
+divergence.
 """
 
 from __future__ import annotations
@@ -233,6 +236,143 @@ def check_cohort_records(segments: List[List[Dict[str, Any]]],
     return checked
 
 
+def check_campaign_records(segments: List[List[Dict[str, Any]]],
+                           errors: List[str]) -> int:
+    """Verify recorded campaign windows against the compiled schedule.
+
+    Soak campaigns: every ``campaign`` record is a
+    pure function of (header ``campaign_spec``, the round indices this
+    segment completed) — the schedule compiler is stateless, so the
+    exact emission sequence (first round of the segment, every
+    virtual-hour boundary, every deterministic-preemption window)
+    re-derives from the header alone and must match the stream
+    field-by-field, bit-exactly.  A campaign record in a segment whose
+    header has no campaign is a forgery, exactly like cohorts.
+    """
+    from federated_pytorch_test_tpu_torch.campaign.schedule import (
+        CAMPAIGN_FIELDS, CampaignSchedule)
+
+    checked = 0
+    for si, segment in enumerate(segments):
+        header = next((r for r in segment
+                       if r.get("event") == "run_header"), None)
+        config = (header or {}).get("config")
+        crecs = [r for r in segment if r.get("event") == "campaign"]
+        spec = (config or {}).get("campaign_spec") \
+            if isinstance(config, dict) else None
+        try:
+            sched = CampaignSchedule.parse(spec)
+        except ValueError as e:
+            errors.append(f"segment {si}: unparseable campaign_spec "
+                          f"{spec!r} in the header config: {e}")
+            continue
+        if sched is None:
+            if crecs:
+                errors.append(
+                    f"segment {si}: {len(crecs)} campaign record(s) but "
+                    "the header config has no campaign (or no config "
+                    "snapshot) — cannot have been produced by this "
+                    "configuration")
+            continue
+        rounds = [r["round_index"] for r in segment
+                  if r.get("event") == "round"
+                  and isinstance(r.get("round_index"), int)]
+        expected = sched.expected_emissions(rounds)
+        checked += len(crecs)
+        for i in range(max(len(expected), len(crecs))):
+            if i >= len(expected):
+                errors.append(
+                    f"segment {si} campaign record {i}: recorded but NOT "
+                    "derivable from the schedule (round_index="
+                    f"{crecs[i].get('round_index')!r})")
+                continue
+            ridx, fields = expected[i]
+            if i >= len(crecs):
+                errors.append(
+                    f"segment {si} campaign record {i}: derived from the "
+                    f"schedule (round {ridx}) but missing from the stream")
+                continue
+            got = {k: crecs[i].get(k) for k in CAMPAIGN_FIELDS}
+            if got != fields:
+                diff = ", ".join(
+                    f"{k}: recorded {got[k]!r} != derived {fields[k]!r}"
+                    for k in CAMPAIGN_FIELDS if got[k] != fields[k])
+                errors.append(
+                    f"segment {si} campaign record {i} (round {ridx}) "
+                    f"diverges: {diff}")
+    return checked
+
+
+def check_serve_records(segments: List[List[Dict[str, Any]]],
+                        errors: List[str]) -> int:
+    """Verify recorded serving rounds against the serve schedule.
+
+    Serving plane: every round a serving segment
+    completes emits exactly one ``serve`` record whose PURE fields —
+    ``weights_version`` (= 1 + round // swap_every), the tag-83
+    ``requests`` draw, the batch plan (``batches``/``padded_slots``/
+    ``padding_waste_frac``), ``swap`` and ``drift_injected`` — are
+    functions of (header ``serve_spec``, round_index) alone, so the
+    whole sequence re-derives from the header and must match the stream
+    field-by-field, bit-exactly.  Latency/QPS/swap-gap/accuracy fields
+    are advisory wall-clock telemetry and are NOT compared.  A serve
+    record in a serving-off segment is a forgery, exactly like cohorts
+    and campaign windows.
+    """
+    from federated_pytorch_test_tpu_torch.serve.batcher import (
+        SERVE_FIELDS, ServeSchedule)
+
+    checked = 0
+    for si, segment in enumerate(segments):
+        header = next((r for r in segment
+                       if r.get("event") == "run_header"), None)
+        config = (header or {}).get("config")
+        srecs = [r for r in segment if r.get("event") == "serve"]
+        spec = (config or {}).get("serve_spec") \
+            if isinstance(config, dict) else None
+        try:
+            sched = ServeSchedule.parse(spec)
+        except ValueError as e:
+            errors.append(f"segment {si}: unparseable serve_spec "
+                          f"{spec!r} in the header config: {e}")
+            continue
+        if sched is None:
+            if srecs:
+                errors.append(
+                    f"segment {si}: {len(srecs)} serve record(s) but "
+                    "the header config has serving off (or no config "
+                    "snapshot) — cannot have been produced by this "
+                    "configuration")
+            continue
+        rounds = [r["round_index"] for r in segment
+                  if r.get("event") == "round"
+                  and isinstance(r.get("round_index"), int)]
+        expected = sched.expected_records(rounds)
+        checked += len(srecs)
+        for i in range(max(len(expected), len(srecs))):
+            if i >= len(expected):
+                errors.append(
+                    f"segment {si} serve record {i}: recorded but NOT "
+                    "derivable from the schedule (round_index="
+                    f"{srecs[i].get('round_index')!r})")
+                continue
+            ridx, fields = expected[i]
+            if i >= len(srecs):
+                errors.append(
+                    f"segment {si} serve record {i}: derived from the "
+                    f"schedule (round {ridx}) but missing from the stream")
+                continue
+            got = {k: srecs[i].get(k) for k in SERVE_FIELDS}
+            if got != fields:
+                diff = ", ".join(
+                    f"{k}: recorded {got[k]!r} != derived {fields[k]!r}"
+                    for k in SERVE_FIELDS if got[k] != fields[k])
+                errors.append(
+                    f"segment {si} serve record {i} (round {ridx}) "
+                    f"diverges: {diff}")
+    return checked
+
+
 def read_records(path: str, validate: bool = True) -> List[Dict[str, Any]]:
     """Parse a JSONL run file; optionally schema-validate every record."""
     records = []
@@ -261,9 +401,13 @@ def replay(records: List[Dict[str, Any]]) -> Tuple[List[str], Dict[str, int]]:
     n_policy = check_policy_records(segments, errors)
     n_sup = check_supervisor_records(records, errors)
     n_cohort = check_cohort_records(segments, errors)
+    n_campaign = check_campaign_records(segments, errors)
+    n_serve = check_serve_records(segments, errors)
     return errors, {"segments": len(segments), "policy_records": n_policy,
                     "supervisor_records": n_sup,
-                    "cohort_records": n_cohort}
+                    "cohort_records": n_cohort,
+                    "campaign_records": n_campaign,
+                    "serve_records": n_serve}
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -287,8 +431,10 @@ def main(argv: Optional[List[str]] = None) -> int:
             print(f"  - {e}")
         return 1
     print(f"replay OK: {stats['policy_records']} policy decision(s), "
-          f"{stats['supervisor_records']} supervisor record(s) and "
-          f"{stats['cohort_records']} cohort record(s) reproduce "
+          f"{stats['supervisor_records']} supervisor record(s), "
+          f"{stats['cohort_records']} cohort record(s), "
+          f"{stats['campaign_records']} campaign record(s) and "
+          f"{stats['serve_records']} serve record(s) reproduce "
           f"across {stats['segments']} segment(s)")
     return 0
 

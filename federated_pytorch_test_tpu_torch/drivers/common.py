@@ -1,17 +1,19 @@
 """Shared CLI plumbing for the port's drivers (the classifiers, the VAEs
 and the CPC's flag surface).
 
-Port of ``federated_pytorch_test_tpu/drivers/common.py`` without
-campaigns: flags (the JAX knob names of every ``FederatedConfig`` field
-the port has, plus ``--device``, ``--n-train`` and ``--n-test``), the data
+Port of ``federated_pytorch_test_tpu/drivers/common.py``: flags (the JAX
+knob names of every ``FederatedConfig`` field the port has, plus
+``--device``, ``--n-train`` and ``--n-test``), the data
 partition, the model choice, the engine and its checkpoints
 (``--midrun-checkpoint`` saves after every round under
 ``<checkpoint-dir>/<prog>_midrun``, ``--load-model`` resumes that slot or
 else loads the end-of-run ``<checkpoint-dir>/<prog>``, which the run saves
 unless ``--no-save-model``), the record stream (written under
 ``<checkpoint-dir>/obs`` unless ``--obs-dir`` or ``--obs-sinks`` say
-otherwise) and the restart supervisor (``--max-restarts``, which turns the
-mid-run checkpoint on).  A driver may hand in its own trainer class, model
+otherwise), the restart supervisor (``--max-restarts``, which turns the
+mid-run checkpoint on) and the soak harness (``--campaign-spec``, which
+turns the mid-run checkpoint on and runs under ``campaign/harness.py``
+``run_soak``, its waits scaled by ``--campaign-accel``).  A driver may hand in its own trainer class, model
 and extra flags, and refuses the flags of what it fixes.  A knob of the
 JAX driver that the port does not have yet is refused by name instead of
 being ignored.
@@ -26,6 +28,7 @@ from typing import Callable, Optional, Type
 
 import torch
 
+from federated_pytorch_test_tpu_torch.campaign.harness import run_soak
 from federated_pytorch_test_tpu_torch.compress.base import COMPRESS_CHOICES
 from federated_pytorch_test_tpu_torch.control.policy import (
     CONTROL_MODES,
@@ -53,8 +56,8 @@ MODEL_CHOICES = ("auto",) + tuple(_MODELS)
 #: flags of the JAX classifier drivers whose features the port does not
 #: have yet (ROADMAP.md): given on the command line, they raise
 UNPORTED = (
-    "campaign-spec", "fused-rounds", "overlap-staging", "overlap-round",
-    "sharded-update", "device-data", "serve-spec", "be-verbose")
+    "fused-rounds", "overlap-staging", "overlap-round",
+    "sharded-update", "device-data", "be-verbose")
 
 #: parse_config's default of a ``fixed`` field, to tell it from a given one
 _FIXED = object()
@@ -93,6 +96,23 @@ def build_parser(defaults: FederatedConfig, prog: str) -> argparse.ArgumentParse
                      "drop=P,straggle=P,corrupt=P,mode=nan|inf|signflip|"
                      "scale|innerprod|collude,scale=X,seed=N,clients=i+j,"
                      "delay=P,delay_max=N,join=P,leave=P,preempt=P")
+        elif f.name == "campaign_spec":
+            p.add_argument(
+                arg, type=str, default=default, metavar="SPEC",
+                help="soak-campaign schedule (campaign/schedule.py): "
+                     "'none' or hours=H,round_minutes=M,diurnal=A,"
+                     "drop=P,straggle=P,corrupt=P,mode=...,join=P,"
+                     "leave=P,storm=P,storm_len=N,storm_straggle=P,"
+                     "burst=P,burst_len=N,burst_corrupt=P,"
+                     "preempt_at=H1+H2,seed=N,accel=X,"
+                     "health_window_hours=H; mutually exclusive with "
+                     "--fault-spec")
+        elif f.name == "serve_spec":
+            p.add_argument(
+                arg, type=str, default=default, metavar="SPEC",
+                help="serving plane (serve/): 'none' or qps=N,"
+                     "round_minutes=M,diurnal=A,buckets=8+32+128,"
+                     "swap_every=N,drift_at=R,seed=N")
         elif f.name == "health_action":
             p.add_argument(
                 arg, choices=HEALTH_ACTIONS, default=default,
@@ -255,7 +275,11 @@ def run_driver(prog: str, trainer: BlockwiseFederatedTrainer,
     With ``--max-restarts`` the run is supervised
     (``control/supervisor.py``): the mid-run checkpoint is on, and each
     restart resumes it on a trainer ``rebuild(cfg)`` makes from the
-    attempt's (from the second restart on, degraded) configuration."""
+    attempt's (from the second restart on, degraded) configuration.  A
+    campaign (``--campaign-spec``) turns the mid-run checkpoint on (its
+    deterministic preemptions need a resume point) and runs under the
+    soak harness (``campaign/harness.py`` ``run_soak``), which prints its
+    virtual clock."""
     cfg = trainer.cfg
     trainer.obs_run_name = prog
     mname = type(trainer.model).__name__
@@ -269,9 +293,10 @@ def run_driver(prog: str, trainer: BlockwiseFederatedTrainer,
         state, history = trainer.run_independent(state, log=log)
     else:
         supervised = cfg.max_restarts > 0
+        campaign = cfg.campaign_spec not in ("none", "", None)
         ck = (checkpoint_path(cfg, prog + "_midrun")
-              if cfg.midrun_checkpoint or supervised else None)
-        if supervised:
+              if cfg.midrun_checkpoint or supervised or campaign else None)
+        if supervised or campaign:
             box = {"trainer": trainer}
 
             def build_trainer(c, attempt):
@@ -281,11 +306,17 @@ def run_driver(prog: str, trainer: BlockwiseFederatedTrainer,
                     box["trainer"].obs_run_name = prog
                 return box["trainer"]
 
-            state, history = supervise_classifier(
-                build_trainer, cfg, ck, state=state, resume=cfg.load_model,
-                run_kwargs={"log": log}, log=log,
-                engine=("vae" if trainer.obs_engine.startswith("vae")
-                        else "classifier"))
+            kw = dict(state=state, resume=cfg.load_model,
+                      run_kwargs={"log": log}, log=log,
+                      engine=("vae" if trainer.obs_engine.startswith("vae")
+                              else "classifier"))
+            if campaign:
+                (state, history), clock = run_soak(
+                    build_trainer, cfg, ck, run_name=prog, **kw)
+                log(f"soak campaign done: {clock!r}")
+            else:
+                state, history = supervise_classifier(
+                    build_trainer, cfg, ck, **kw)
             trainer = box["trainer"]
         else:
             state, history = trainer.run(

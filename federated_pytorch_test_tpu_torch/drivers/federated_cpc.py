@@ -5,14 +5,20 @@ shared flag surface of ``drivers/common.py`` (every ``FederatedConfig``
 field the port has: ``--fault-spec``, ``--participation``,
 ``--update-guard``, ``--robust-agg``, ``--async-rounds``,
 ``--num-devices``, ``--midrun-checkpoint``, ``--obs-dir``,
-``--max-restarts``, ...) plus the CPC's data and model knobs, with the
+``--max-restarts``, ``--campaign-spec``, ...) plus the CPC's data and
+model knobs, with the
 reference defaults (K=4 clients from the file list, Lc=256, Rc=32, batch
 128, patch 32, Niter=10, Nloop=1, Nadmm=1, L-BFGS history 7 and max_iter
 2) and ``--device`` (default ``cuda``; ``cpu`` only on request).  Flags
 the CPC trainer cannot honour (``--compress``, ``--fused-collective``,
 ``--bb-update``) fail with its constructor's ValueError.  Files that are
 absent fall back to deterministic synthetic visibility cubes keyed on
-(file, SAP) — see ``data/lofar.py``.
+(file, SAP) — see ``data/lofar.py``.  A campaign runs as in the JAX
+driver: its windows set each round's faults, and its ``preempt_at`` fires
+only with a mid-run checkpoint, so it needs ``--max-restarts`` to be
+survived (the supervisor here sleeps in real time; ``--campaign-accel``
+scales the soak harness of the classifier drivers only).  ``--serve-spec``
+raises "no serving adapter" at the first round's serving tick.
 
 Checkpoints: the end-of-run save ``<checkpoint-dir>/federated_cpc`` (the
 three sub-models' stacked client parameters; unless ``--no-save-model``),

@@ -5,7 +5,7 @@ validated by the same schema.  The run header names the platform
 (``"gpu"`` or ``"cpu"``), the torch version and, on a card, the CUDA
 version and the card's name; the round records carry the CUDA allocator's
 memory counters (:func:`device_memory_stats`).  The port emits no
-``compile``, ``campaign`` or ``serve`` records.
+``compile`` records.
 
 Lifecycle::
 
@@ -373,6 +373,37 @@ class RunRecorder:
         if not self.enabled:
             return None
         return self._emit(rec)
+
+    def campaign_event(self, fields: Dict[str, Any]) -> Optional[dict]:
+        """Emit one ``campaign`` record (schema v12; ``campaign/``): a
+        :meth:`~..campaign.schedule.CampaignSchedule.record_fields` body,
+        right after the round record of the window's first round.  No
+        ``time_unix`` and not fed to the controller: the window is a pure
+        function of (campaign seed, round_index) that ``control.replay``
+        re-derives from the header config."""
+        if not self.enabled:
+            return None
+        rec = {"event": "campaign", "schema": SCHEMA_VERSION,
+               "run_id": self.run_id}
+        rec.update(json_safe(fields))
+        return self._emit(rec)
+
+    def serve_event(self, fields: Dict[str, Any]) -> Optional[dict]:
+        """Emit one ``serve`` record (schema v13; ``serve/``): the pure
+        subset (:data:`~..serve.batcher.SERVE_FIELDS`) plus the advisory
+        latency, QPS and eval-stream fields.  No ``time_unix`` and not fed
+        to the controller; like ``round()`` it is fed to the watchdog's
+        ``observe_serve`` (whose ``serve_drift`` alert is policy input)
+        even when no sink writes it."""
+        if not self.enabled and self.health is None:
+            return None
+        rec = {"event": "serve", "schema": SCHEMA_VERSION,
+               "run_id": self.run_id}
+        rec.update(json_safe(fields))
+        out = self._emit(rec) if self.enabled else rec
+        if self.health is not None:
+            self.health.observe_serve(rec)
+        return out
 
     def close(self, status: str = "completed",
               extra: Optional[dict] = None) -> Optional[dict]:

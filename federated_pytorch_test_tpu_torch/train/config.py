@@ -5,7 +5,8 @@ The subset of ``federated_pytorch_test_tpu/train/config.py``'s
 classifier drivers: FedAvg, FedProx, ADMM consensus and the no-consensus
 baseline, with the robust or compressed exchange and Adam or L-BFGS, the
 robustness shell of a round and its checkpoints, the record stream, the
-health watchdog, the control plane and the restart supervisor),
+health watchdog, the control plane, the restart supervisor, the soak
+campaigns and the serving plane),
 with the JAX package's defaults, plus the
 device the run uses.  A knob of the JAX package that is missing here is not
 ported yet (``ROADMAP.md``); the drivers refuse it by name.
@@ -68,6 +69,29 @@ class FederatedConfig:
     cohort_sampling: str = "uniform"  # uniform|weighted|stratified
     cohort_frac: float = 1.0       # share of the K cohort slots active
     fault_spec: str = "none"       # train/faults.py grammar
+    # soak campaigns (campaign/): a trace-driven schedule compiled per
+    # round into the seeded fault and churn families, recorded as
+    # `campaign` records that control.replay re-derives; "none" is off.
+    # Mutually exclusive with fault_spec (the campaign owns the families'
+    # probabilities per round).  Grammar:
+    #   hours=H,round_minutes=M,diurnal=A,drop=P,straggle=P,corrupt=P,
+    #   mode=M,scale=X,join=P,leave=P,storm=P,storm_len=N,
+    #   storm_straggle=P,burst=P,burst_len=N,burst_corrupt=P,
+    #   preempt_at=h1+h2,seed=N,accel=X,health_window_hours=H
+    campaign_spec: str = "none"
+    # virtual-clock acceleration of the soak harness (virtual seconds per
+    # wall second); 0: the spec's accel= (else real time).  It scales
+    # only the supervisor's sleeps, never a recorded value
+    campaign_accel: float = 0.0
+    # serving plane (serve/): the consensus hot-swapped into a bucketed
+    # predictor at every round boundary, seeded traffic (tag 83) through
+    # the micro-batcher, the answers scored as an eval stream feeding the
+    # serve_drift rule and the control plane's refresh_serving rung; one
+    # `serve` record a round, whose planning fields are pure in (seed,
+    # round index).  "none" is off.  Grammar:
+    #   qps=N,round_minutes=M,diurnal=A,buckets=8+32+128,swap_every=N,
+    #   drift_at=R,seed=N
+    serve_spec: str = "none"
     update_guard: bool = False     # finite + norm-bound check of updates
     guard_norm_mult: float = 10.0  # bound: this x the running accepted norm
     quarantine_rounds: int = 1     # rounds a rejected client sits out

@@ -18,8 +18,11 @@ the CUDA kernels of ``ops/infonce.py``.
 
 The trainer composes the round kernel of ``train/rounds.py``, as the
 classifier engine does.  With every robustness knob off the round is the
-one above.  Partial participation, injected faults, the update guard,
-async rounds or a robust estimator build the robust round instead:
+one above.  Partial participation, injected faults, a soak campaign, the
+update guard, async rounds or a robust estimator build the robust round
+instead (the JAX trainer builds it for a campaign only with one of the
+other knobs, and otherwise counts the campaign's draws without applying
+them):
 stragglers and async non-dispatchers keep their round-start block and
 their L-BFGS state bit for bit (they do not train: their draws are keyed
 on (seed, round, client), so nothing shifts), corruption hits the wire at
@@ -38,6 +41,8 @@ bit the uninterrupted run.  Every run opens the obs recorder of
 ``cfg.obs_dir`` (a ``round`` and a ``client`` record a round, the stage
 and compute spans), with the health watchdog and the control plane on the
 same records; ``cfg.profile_dir`` traces the run with ``torch.profiler``.
+The trainer has no serving adapter: a run with ``serve_spec`` raises "no
+serving adapter" at its first serving tick, as the JAX trainer does.
 """
 
 from __future__ import annotations
@@ -159,8 +164,10 @@ class CPCTrainer(RoundKernel):
         self._init_round_kernel()
         self._validate_round_cfg()
         # the robust round is built only when a knob needs it; otherwise
-        # the round is slice 1's
+        # the round is slice 1's.  A campaign needs it: its windows mask
+        # and poison clients per round
         self._robust_round = (self.faults.enabled
+                              or self.campaign is not None
                               or cfg.participation < 1.0
                               or cfg.async_rounds or cfg.update_guard
                               or cfg.robust_agg != "none")
@@ -193,6 +200,9 @@ class CPCTrainer(RoundKernel):
                 tree)
         # (px, py) of the round in flight, for the mid-run checkpoint
         self._cur_pxpy = (0, 0)
+        # the corruption each (model, block, px, py) round applies
+        # (_round_corruption)
+        self._corruption_cache: Dict[tuple, Any] = {}
 
     # ------------------------------------------------------------------
     def block(self, mdl: str, ci: int):
@@ -331,6 +341,7 @@ class CPCTrainer(RoundKernel):
         # one-shot preemption: a resumed segment replaying the drawn round
         # must not fire again
         self._preempt_armed = not restored
+        self._campaign_resume_floor(restored, len(history))
         # size the producer by the rounds that remain
         n_rounds = 0
         for nl in range(Nloop):
@@ -448,24 +459,36 @@ class CPCTrainer(RoundKernel):
                      torch.linalg.vector_norm(xflat - znew[None, :], dim=1))
         return {**state, mdl: sub}, znew, opt, dual, losses, norms
 
+    def _round_corruption(self, key: tuple):
+        """The ``(mode, scale)`` that rounds of ``key`` = (model, block,
+        px, py) poison corrupted deltas with (None: no corruption): read
+        from the fault spec in force at the first such round, after its
+        campaign tick, and kept for the trainer's life, as the JAX trainer
+        bakes it into the round it compiles and caches a key."""
+        if key not in self._corruption_cache:
+            f = self.faults
+            self._corruption_cache[key] = (
+                (f.mode, f.scale) if f.enabled and f.corrupt > 0 else None)
+        return self._corruption_cache[key]
+
     def _round_robust(self, staged, state, z, opt, mdl, order, mask, px, py,
-                      tmask, wmask, corrupt, gbound):
-        """The robust round: the clients of ``tmask`` train; corruption,
-        the guard and the (robust or weighted) aggregation over the
-        exchange weights ``wmask``; the write-back to the accepted
-        participants.  Returns (state, z_new, opt, dual, losses, diag,
-        okf, norms); ``okf`` the [K] guard verdicts (None with the guard
-        off)."""
+                      tmask, wmask, corrupt, gbound, corruption):
+        """The robust round: the clients of ``tmask`` train; corruption
+        (``(mode, scale)`` or None), the guard and the (robust or
+        weighted) aggregation over the exchange weights ``wmask``; the
+        write-back to the accepted participants.  Returns (state, z_new,
+        opt, dual, losses, diag, okf, norms); ``okf`` the [K] guard
+        verdicts (None with the guard off)."""
         cfg, K, mesh, dev = self.cfg, self.K, self.mesh, self.device
         xflat, opt, losses = self._train_clients(
             staged, state, opt, mdl, order, mask, px, py, active=tmask)
         w_in = torch.as_tensor(np.asarray(wmask, np.float32), device=dev)
         x = xflat
-        if self.faults.enabled and self.faults.corrupt > 0:
+        if corruption is not None:
             # the wire delta is poisoned at the encode boundary
             c = torch.as_tensor(np.asarray(corrupt, np.float32), device=dev)
             x = z[None, :] + apply_corruption(
-                x - z[None, :], c, self.faults.mode, self.faults.scale,
+                x - z[None, :], c, *corruption,
                 w=w_in, mesh=mesh)
         probe = self._client_probe
         cl_nrm = (torch.linalg.vector_norm(x - z[None, :], dim=1)
@@ -517,11 +540,16 @@ class CPCTrainer(RoundKernel):
         cfg = self.cfg
         t_round = time.perf_counter()
         launches0 = self._launch_counts()
+        # the campaign tick, then the simulated preemption, before any
+        # work of the round
+        self._campaign_tick(len(history), nloop, flat_bi, nadmm,
+                            checkpoint_path)
         self._maybe_preempt(nloop, flat_bi, nadmm, len(history),
                             checkpoint_path)
         px, py, batch = (src.get() if src is not None
                          else self.data.round_batches(self.Niter))
         self._cur_pxpy = (px, py)
+        corruption = self._round_corruption((mdl, ci, px, py))
         order, mask, N = self.block(mdl, ci)
         # the quarantine census at round start, then the round's masks
         q_start = int(np.sum(self._quarantine > 0))
@@ -546,7 +574,7 @@ class CPCTrainer(RoundKernel):
             state, z, opt, dual, losses, diag, okf, norms = \
                 self._round_robust(staged, state, z, opt, mdl, order, mask,
                                    px, py, tmask, wmask, corrupt,
-                                   self._round_gbound())
+                                   self._round_gbound(), corruption)
             diag = {k: float(v) for k, v in diag.items()}
             if cfg.update_guard:
                 self._apply_guard_verdicts(diag, okf.cpu().numpy(),

@@ -49,14 +49,20 @@ The robustness shell of a round is the JAX engine's (``RoundKernel``,
 ``train/rounds.py``): partial participation, injected faults (drop,
 straggle, corrupt at the encode boundary, transit delay, churn,
 preemption), the update guard with quarantine, buffered async rounds and
-population cohorts.  Any of them makes the round *partial*: the local
+population cohorts, or a soak campaign (``campaign/``) whose per-round
+window sets the fault spec.  Any of them makes the round *partial*: the local
 epoch skips the clients out of training (the JAX engine computes them and
 discards the result, so the numbers are the same), the exchange weights
 clients by the round's activity vector, and only its participants receive
 z.  Adam's step count is kept per client, as optax's under the JAX
 engine's ``vmap``.  ``run(checkpoint_path=...)`` saves a mid-run checkpoint
 after every round and ``resume=True`` continues from the newest usable
-slot (``utils/checkpoint.py``), bit for bit the uninterrupted run.
+slot (``utils/checkpoint.py``), bit for bit the uninterrupted run.  A
+block's round shape (masked or not, corrupted or not) is read from the
+fault spec when the block is built, as the JAX engine compiles it
+(``_block_flags``).  With ``serve_spec`` set the consensus is served at
+every round boundary (``serve/``): hot-swapped into a bucketed predictor
+that answers the round's seeded traffic, one ``serve`` record a round.
 
 Every run opens a recorder (``obs/``): a run header, a ``round`` and a
 ``client`` record a round with the stage, train and comm spans, and a
@@ -100,6 +106,14 @@ from federated_pytorch_test_tpu_torch.parallel.mesh import (
     ClientMesh,
     usable_device_count,
 )
+from federated_pytorch_test_tpu_torch.serve.batcher import MicroBatcher
+from federated_pytorch_test_tpu_torch.serve.evalstream import EvalStream
+from federated_pytorch_test_tpu_torch.serve.infer import (
+    HEADS,
+    BatchedPredictor,
+    consensus_weights,
+)
+from federated_pytorch_test_tpu_torch.serve.swap import DoubleBuffer
 from federated_pytorch_test_tpu_torch.train.algorithms import (
     Algorithm,
     BBConfig,
@@ -334,6 +348,8 @@ class BlockwiseFederatedTrainer(RoundKernel):
         self.client_norm = torch.from_numpy(self._client_norm_host).to(
             self.device)
 
+        # each block's frozen round shape (_block_flags)
+        self._flag_cache: Dict[int, tuple] = {}
         self._epochs_staged = 0
         self._pending: Optional[tuple] = None
         self._stage_pool = (concurrent.futures.ThreadPoolExecutor(
@@ -587,6 +603,25 @@ class BlockwiseFederatedTrainer(RoundKernel):
         return (ClientState(params, batch_stats, opts, state.comp),
                 torch.stack(losses))
 
+    def _block_flags(self, ci: int):
+        """Block ``ci``'s round shape ``(partial, corruption)``: whether
+        its rounds carry activity masks, and the ``(mode, scale)`` its
+        exchange poisons corrupted deltas with (None: no corruption).  Read
+        from the fault spec in force when the block is first built, at its
+        start before the round's campaign tick, and kept for the trainer's
+        life (a compressor swap rebuilds): the JAX engine bakes both into
+        the step it compiles and caches a block.  Under a campaign a window
+        that turns faults on or off mid-block therefore changes the draws
+        and the round record's counts, but not this shape."""
+        flags = self._flag_cache.get(ci)
+        if flags is None:
+            f = self.faults
+            partial = self._partial
+            corruption = ((f.mode, f.scale) if f.enabled and f.corrupt > 0
+                          else None)
+            flags = self._flag_cache[ci] = (partial, corruption)
+        return flags
+
     def _comm_mode(self, nadmm: int) -> str:
         """plain | bb_store (round 0 of a block) | bb (every bb_period_T
         rounds) — consensus_multi.py:242-278."""
@@ -601,7 +636,7 @@ class BlockwiseFederatedTrainer(RoundKernel):
                    mode: str = "plain", active=None, corrupt=None,
                    gbound=None):
         """The communication round of block ``ci``.  On a partial round
-        (``self._partial``) ``active`` is the [K] activity vector (0/1, or
+        (``_block_flags``) ``active`` is the [K] activity vector (0/1, or
         the async staleness weights), ``corrupt`` the [K] 0/1 corruption
         indicator and ``gbound`` the guard's norm bound; the three are
         ignored on the full-participation round.  Returns (state, z, y,
@@ -611,20 +646,19 @@ class BlockwiseFederatedTrainer(RoundKernel):
         cfg = self.cfg
         K = cfg.K
         order, mask = self.order, self.mask_for_block(ci)
-        partial = self._partial
+        partial, corruption = self._block_flags(ci)
         guard_on = cfg.update_guard
         dev = z.device
         if partial:
             active = torch.as_tensor(np.asarray(active, np.float32),
                                      device=dev)
         x = codec.get_trainable_stack(state.params, order, mask)
-        if partial and self.faults.enabled and self.faults.corrupt > 0:
+        if corruption is not None:
             # the wire delta is poisoned before compression, where a faulty
             # client corrupts a real deployment; the EF residual sees it
             c = torch.as_tensor(np.asarray(corrupt, np.float32), device=dev)
             x = z[None, :] + apply_corruption(
-                x - z[None, :], c, self.faults.mode, self.faults.scale,
-                w=active, mesh=self.mesh)
+                x - z[None, :], c, *corruption, w=active, mesh=self.mesh)
         comp = state.comp
         mean_fn = self.mean_fn
         if self.compressor.name != "none":
@@ -723,6 +757,56 @@ class BlockwiseFederatedTrainer(RoundKernel):
             totals.append(acc)
         return self.eval_finalize(torch.stack(totals).cpu().numpy(),
                                   self.test_n)
+
+    def _serve_export(self, state: ClientState):
+        """The served consensus: the mean over the [K] client stack of
+        (params, batch_stats), computed into new tensors (a read: the
+        trainer keeps using ``state``)."""
+        return consensus_weights((state.params, state.batch_stats))
+
+    def _build_serve_plane(self, sched) -> dict:
+        """The serving runtime of the classifier-shaped engines: the head
+        in a bucketed predictor over the eval-mode forward ``evaluate``
+        runs, the double-buffered hot-swap, the micro-batcher and a host
+        traffic pool of the test rows whose weight is > 0 (uint8).  The
+        consensus reads the mean of the clients' normalisation statistics.
+        The classifier gets the eval stream (``serve_drift``'s feed).  A
+        model with reparametrisation noise has no served forward: the JAX
+        serve forward calls it without its noise argument and fails at the
+        first dispatch, and so does this one, with a ValueError."""
+        dev = self.device
+        norm = torch.from_numpy(np.asarray(
+            self._client_norm_host.mean(axis=0), np.float32)).to(dev)
+        model, noisy = self.model, self.noise_shape is not None
+
+        def forward(weights, xb_u8):
+            if noisy:
+                raise ValueError(
+                    f"the {self.obs_engine!r} engine cannot serve: its "
+                    "forward needs reparametrisation noise, which the "
+                    "serve forward does not pass (the JAX serve forward "
+                    "calls the model without its rng argument)")
+            p, bs = weights
+            return model.apply(p, bs, _normalize_u8(xb_u8, norm),
+                               train=False)[0]
+
+        head_key = "vae" if self.obs_engine.startswith("vae") else "classifier"
+        pred = BatchedPredictor(HEADS[head_key](forward), sched.buckets,
+                                stage=lambda a: torch.from_numpy(a).to(dev))
+        plane: dict = {"buffer": DoubleBuffer(), "pred": pred}
+        # the dispatch reads the tick's acquired snapshot: one weights
+        # version a drained round
+        plane["batcher"] = MicroBatcher(
+            sched, lambda batch: pred(plane["current"], batch),
+            max_queue=1 << 20)
+        xt = self.test_x.cpu().numpy()
+        keep = self.test_w.cpu().numpy().reshape(-1) > 0
+        plane["pool_x"] = xt.reshape((-1,) + xt.shape[2:])[keep]
+        plane["pool_y"] = self.test_y.cpu().numpy().reshape(-1)[keep]
+        plane["pool_n"] = int(plane["pool_x"].shape[0])
+        plane["stream"] = (EvalStream(sched, window=self.cfg.health_window)
+                           if head_key == "classifier" else None)
+        return plane
 
     def round_bytes_on_wire(self, N: int, n_active: int) -> int:
         """Uplink bytes of a round: every participant ships one encoded
@@ -903,6 +987,8 @@ class BlockwiseFederatedTrainer(RoundKernel):
                 if self._fused_coll:
                     self.mean_fn = (None if comp.sparse else make_fused_mean(
                         comp, self.mesh, self.cfg.K))
+            # the blocks are rebuilt as the JAX engine recompiles its steps
+            self._flag_cache.clear()
             log(f"control: {d.intervention} compress {old} -> {new} at "
                 f"block boundary ({d.reason})")
 
@@ -920,6 +1006,7 @@ class BlockwiseFederatedTrainer(RoundKernel):
         # one-shot preemption: a resumed segment replaying the drawn round
         # must not fire again
         self._preempt_armed = resume_at is None
+        self._campaign_resume_floor(resume_at is not None, len(history))
         if cfg.async_checkpoint and checkpoint_path is not None \
                 and self._ckpt_writer is None:
             self._ckpt_writer = ckpt.AsyncCheckpointWriter()
@@ -936,6 +1023,8 @@ class BlockwiseFederatedTrainer(RoundKernel):
                     continue
                 if obs.control is not None:
                     self._apply_block_control(obs, log)
+                # the block's round shape, from the fault spec in force now
+                self._block_flags(ci)
                 N = self.block_size(ci)
                 nadmm_start = 0
                 if (resume_at is not None and (nloop, ci) == resume_at[:2]
@@ -976,10 +1065,13 @@ class BlockwiseFederatedTrainer(RoundKernel):
         the block variables (z, y, rho, x0, yhat0) after it."""
         cfg, algo = self.cfg, self.algo
         K, dev = cfg.K, self.device
-        partial = self._partial
+        partial = self._block_flags(ci)[0]
         z, y, rho, x0, yhat0 = blockvars
         t_round = time.perf_counter()
         launches0 = _launch_counts()
+        # the campaign tick first: it derives this round's fault spec (and
+        # may raise its deterministic preemption) before any family draws
+        self._campaign_tick(len(history), nloop, ci, nadmm, checkpoint_path)
         self._maybe_preempt(nloop, ci, nadmm, len(history), checkpoint_path)
         train_m, comm_m, corrupt, comm_host, fcounts = \
             self._round_activity(nloop, ci, nadmm)

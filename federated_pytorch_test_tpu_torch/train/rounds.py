@@ -1,13 +1,14 @@
 """The robustness shell of a communication round, for any engine.
 
-Port of ``RoundKernel`` of ``federated_pytorch_test_tpu/train/rounds.py``
-without the campaign schedule and the serving plane.  Everything here is
-host-side bookkeeping: seeded mask draws, the quarantine, async, churn
-and population ledgers, their slice of the mid-run checkpoint meta, and
-the round's observability fan-out (the round and client records, the
-phase spans, the health watchdog and the control plane's round-scope
-interventions).  The engine runs the round's tensor work and hands the
-kernel back the guard verdicts.
+Port of ``RoundKernel`` of ``federated_pytorch_test_tpu/train/rounds.py``.
+Everything here is host-side bookkeeping: seeded mask draws, the
+quarantine, async, churn and population ledgers, their slice of the
+mid-run checkpoint meta, the soak campaign's per-round window, the
+serving plane's round tick, and the round's observability fan-out (the
+round, client, campaign and serve records, the phase spans, the health
+watchdog and the control plane's round-scope interventions).  The engine
+runs the round's tensor work and hands the kernel back the guard
+verdicts.
 
 Host-class contract (what the mixin reads):
 
@@ -25,6 +26,9 @@ Host-class contract (what the mixin reads):
 ``_flush_ckpt_writer()``    the async writer's barrier
 ``_init_comp_state(ci)``    fresh [K]-stacked compressor state of block
                             ``ci`` (reached from ``_reset_comp_rows``)
+``_build_serve_plane``      ``(sched) -> dict`` and ``_serve_export``
+                            ``(state) -> weights``: the serving adapter
+                            (the base raises "no serving adapter")
 ==========================  ===========================================
 
 A mixin, so that the CPC trainer can compose it too.  The masks come back
@@ -41,6 +45,9 @@ from typing import Optional
 import numpy as np
 import torch
 
+from federated_pytorch_test_tpu_torch.campaign.schedule import (
+    CampaignSchedule,
+)
 from federated_pytorch_test_tpu_torch.control.policy import (
     CONTROL_MODES,
     CONTROL_POLICIES,
@@ -60,6 +67,7 @@ from federated_pytorch_test_tpu_torch.obs.health import (
 from federated_pytorch_test_tpu_torch.parallel.mesh import CollectiveTimeoutError
 from federated_pytorch_test_tpu_torch.population import ClientRegistry
 from federated_pytorch_test_tpu_torch.population.sampler import SAMPLER_CHOICES
+from federated_pytorch_test_tpu_torch.serve.batcher import SERVE_TAG, ServeSchedule
 from federated_pytorch_test_tpu_torch.train.faults import FaultSpec
 from federated_pytorch_test_tpu_torch.utils.checkpoint import (
     NoUsableCheckpointError,
@@ -81,6 +89,24 @@ class RoundKernel:
         set."""
         cfg = self.cfg
         self.faults = FaultSpec.parse(cfg.fault_spec)
+        # soak campaign: _campaign_tick swaps self.faults for the window's
+        # derived spec at every round entry; the parsed base (the disabled
+        # spec: campaign and fault_spec exclude each other) keeps the
+        # defaults.  The floor keeps a resumed segment from firing a
+        # deterministic preempt_at again; the last emitted hour drives the
+        # transition-only `campaign` record
+        self.campaign = CampaignSchedule.parse(cfg.campaign_spec)
+        self._campaign_base_faults = self.faults
+        self._campaign_floor = -1
+        self._campaign_window = None
+        self._campaign_last_hour = None
+        # serving plane: the schedule owns the pure per-round plan (no
+        # serve state rides in the checkpoint); the runtime half is built
+        # at the first serving round by the engine's _build_serve_plane;
+        # _serve_forced is the control plane's pending forced refresh
+        self._serve_sched = ServeSchedule.parse(cfg.serve_spec)
+        self._serve_plane = None
+        self._serve_forced = False
         # per-client remaining quarantine rounds and the per-block running
         # guard norm scale (inf: no bound until one clean round)
         self._quarantine = np.zeros(cfg.K, np.int64)
@@ -123,8 +149,11 @@ class RoundKernel:
 
     @property
     def _churn_live(self) -> bool:
-        """Can this run's membership ledger ever move?"""
-        return self.faults.churn_enabled
+        """Can this run's membership ledger ever move?  A campaign with
+        churn counts whatever its current window says (sticky, so that the
+        ledger meta does not flap between windows)."""
+        return (self.faults.churn_enabled
+                or (self.campaign is not None and self.campaign.has_churn))
 
     @property
     def _pop_active(self) -> bool:
@@ -136,7 +165,9 @@ class RoundKernel:
     def _partial(self) -> bool:
         """Do rounds carry activity masks?  Partial participation, faults,
         the guard, async rounds and a rotating cohort all mask clients out;
-        with every knob off the round is the full-participation one."""
+        with every knob off the round is the full-participation one.  Reads
+        the current fault spec: the classifier engine freezes it a block
+        (``_block_flags``), as the JAX engine's compiled step does."""
         cfg = self.cfg
         return (cfg.participation < 1.0 or self.faults.enabled
                 or cfg.update_guard or cfg.async_rounds
@@ -160,6 +191,20 @@ class RoundKernel:
                 "bb_update: both can mask clients out of a round, and the "
                 "BB spectral history (x0/yhat0 deltas) assumes every "
                 "client moves every round (consensus_multi.py:242-278)")
+        if self.campaign is not None:
+            if self.faults.enabled:
+                raise ValueError(
+                    "campaign_spec and fault_spec are mutually exclusive: "
+                    "the campaign schedule OWNS the fault families' "
+                    "probabilities per round (fold static fault knobs "
+                    "into the campaign spec instead)")
+            if cfg.bb_update:
+                raise ValueError(
+                    "campaign_spec is incompatible with bb_update: the "
+                    "campaign's arrival/fault windows mask clients out "
+                    "of rounds, and the BB spectral history assumes "
+                    "every client moves every round "
+                    "(consensus_multi.py:242-278)")
         if cfg.async_rounds:
             if cfg.bb_update:
                 raise ValueError(
@@ -303,7 +348,7 @@ class RoundKernel:
         quarantined = int(np.sum(self._quarantine > 0))
         zero = np.zeros(cfg.K, np.float32)
         if (not faults.enabled and quarantined == 0
-                and self._pop_slot_mask is None):
+                and self._pop_slot_mask is None and self.campaign is None):
             host = (np.ones(cfg.K, np.float32) if cfg.participation >= 1.0
                     else self._participation_host(nloop, ci, nadmm))
             if self._client_probe:
@@ -392,6 +437,119 @@ class RoundKernel:
         return {"members_active": int(self._members.sum()),
                 "joined": int(joined.sum()),
                 "left": int(left.sum())}
+
+    # ------------------------------------------------------------------
+    # soak campaign: the round's window and its record
+    # ------------------------------------------------------------------
+    def _campaign_tick(self, rounds_done: int, nloop: int, ci: int,
+                       nadmm: int, checkpoint_path) -> None:
+        """Apply the campaign window of round ``rounds_done``: swap
+        ``self.faults`` for the window's derived spec (the seeded families
+        then draw with the campaign seed) and stash the window for the
+        ``campaign`` record.  A deterministic ``preempt_at`` event raises
+        :class:`CollectiveTimeoutError`, as the ``preempt=`` family does,
+        once the newest checkpoint is durable; ``_campaign_floor`` (the
+        resumed segment's first round) keeps it from firing again."""
+        if self.campaign is None:
+            return
+        w = self.campaign.window(rounds_done)
+        self.faults = self.campaign.spec_for(
+            w, base=self._campaign_base_faults)
+        self._campaign_window = w
+        if (w.preempt_now and rounds_done > self._campaign_floor
+                and rounds_done > 0 and checkpoint_path is not None):
+            if self._ckpt_writer is not None:
+                self._ckpt_writer.wait()
+            raise CollectiveTimeoutError(
+                f"campaign preemption at round {rounds_done} "
+                f"(virtual hour {w.hour}): campaign spec preempt_at "
+                f"scheduled this round", round_index=rounds_done)
+
+    def _campaign_resume_floor(self, resumed: bool,
+                               rounds_prior: int) -> None:
+        """A segment's start: a resumed segment fires a ``preempt_at``
+        event only strictly past its first round, and the transition-only
+        ``campaign`` emission restarts with the segment."""
+        self._campaign_floor = rounds_prior if resumed else -1
+        self._campaign_last_hour = None
+
+    def _emit_campaign_record(self, obs, round_index: int) -> None:
+        """Transition-only ``campaign`` record, right after the round
+        record: the segment's first round, every virtual-hour boundary and
+        every preempted window (``CampaignSchedule.expected_emissions``)."""
+        w = self._campaign_window
+        if w is None or w.round_index != round_index:
+            return
+        if (self._campaign_last_hour is None
+                or w.hour != self._campaign_last_hour or w.preempt_now):
+            obs.campaign_event(self.campaign.record_fields(w))
+        self._campaign_last_hour = w.hour
+
+    # ------------------------------------------------------------------
+    # serving plane: hot-swap, traffic and the `serve` record
+    # ------------------------------------------------------------------
+    def _build_serve_plane(self, sched) -> dict:
+        """Engine hook: the serving runtime (predictor, hot-swap buffer,
+        micro-batcher, host traffic pool and, for a classifier, the eval
+        stream).  The base kernel has no model surface to serve."""
+        raise ValueError(
+            f"serve_spec is set but the {self.obs_engine!r} engine has "
+            "no serving adapter (_build_serve_plane); serve with the "
+            "classifier/VAE engines, or use serve.infer heads directly")
+
+    def _serve_export(self, state):
+        """Engine hook: the served consensus of the client state."""
+        raise ValueError(
+            f"the {self.obs_engine!r} engine has no serving adapter")
+
+    def _serve_tick(self, obs, round_index: int, state, log=print) -> None:
+        """One serving round at the round-obs boundary: publish when the
+        schedule's swap sequence starts a new ``weights_version`` or a
+        forced refresh is pending, answer the round's seeded traffic
+        through the micro-batcher, score the answers on the eval stream
+        and emit one ``serve`` record.  A forced refresh republishes the
+        current consensus without bumping the version, so interventions
+        never move the replay-checked swap sequence."""
+        sched = self._serve_sched
+        forced = self._serve_forced
+        self._serve_forced = False
+        if self._serve_plane is None:
+            self._serve_plane = self._build_serve_plane(sched)
+        plane = self._serve_plane
+        fields = sched.record_fields(round_index)
+        version = int(fields["weights_version"])
+        gap = None
+        if plane["buffer"].version != version or forced:
+            gap = plane["buffer"].publish(version, self._serve_export(state),
+                                          block=True)
+        # request content: pool rows drawn on the tag-83 content substream
+        # (replay checks the count, the schedule's requests_for draw)
+        n = int(fields["requests"])
+        rng = np.random.default_rng([sched.seed, SERVE_TAG, round_index, 2])
+        idx = rng.integers(plane["pool_n"], size=n)
+        # one snapshot for the whole drain: never torn even if a publish
+        # landed mid-round
+        _, plane["current"] = plane["buffer"].acquire()
+        mb = plane["batcher"]
+        pool_x = plane["pool_x"]
+        for i in idx:
+            mb.submit(pool_x[i])
+        outs, tel = mb.drain()
+        rec = dict(fields)
+        rec["serve_p50_ms"] = round(tel["serve_p50_ms"], 6)
+        rec["serve_p99_ms"] = round(tel["serve_p99_ms"], 6)
+        rec["serve_qps"] = round(tel["serve_qps"], 6)
+        if gap is not None:
+            rec["swap_gap_seconds"] = round(gap, 6)
+        if forced:
+            rec["forced_refresh"] = True
+            log(f"serve: forced refresh applied at round {round_index} "
+                f"(version {version} republished)")
+        stream = plane.get("stream")
+        if stream is not None and plane.get("pool_y") is not None:
+            rec.update(stream.score(round_index, np.stack(outs),
+                                    plane["pool_y"][idx]))
+        obs.serve_event(rec)
 
     def _maybe_preempt(self, nloop: int, ci: int, nadmm: int,
                        rounds_done: int, checkpoint_path) -> None:
@@ -677,10 +835,12 @@ class RoundKernel:
                         checkpoint_path=None, state=None, blockvars=None,
                         nxt=None, history=None, log=print):
         """One round's observability fan-out: the round record, the
-        client record, the phase and checkpoint spans, then the health
-        watchdog and the control plane (a fatal health trip owns the
-        exit, the supervisor the recovery).  ``phase_marks`` is
-        ``[(name, cat, t0, t1), ...]``."""
+        client record, the campaign record, the serving tick, the phase
+        and checkpoint spans, then the health watchdog and the control
+        plane (a fatal health trip owns the exit, the supervisor the
+        recovery).  With no sink, watchdog or controller nothing runs, the
+        serving tick included.  ``phase_marks`` is ``[(name, cat, t0,
+        t1), ...]``."""
         if not (obs.enabled or obs.health is not None
                 or obs.control is not None):
             return
@@ -694,6 +854,12 @@ class RoundKernel:
         if self._client_probe:
             self._emit_client_record(obs, round_index, N, loss_host,
                                      cl_nrm, cl_dist)
+        if self.campaign is not None:
+            # the window transition, if any, rides behind the round record
+            self._emit_campaign_record(obs, round_index)
+        if self._serve_sched is not None and state is not None:
+            # the serving tick rides the round boundary
+            self._serve_tick(obs, round_index, state, log=log)
         if obs.enabled:
             rspan = (rrec or {}).get("span_id")
             for nm, cat, s0, s1 in phase_marks:
@@ -742,9 +908,10 @@ class RoundKernel:
     def _apply_round_control(self, obs, checkpoint_path, log=print):
         """Act-mode round-scope decisions at the round boundary:
         ``max_staleness`` and ``cohort_frac`` are host knobs read every
-        round, so they apply live; a ``serve_swap`` is skipped (serving is
-        not ported); a ``checkpoint_restart`` verifies the newest slot and
-        raises :class:`ControlRestart` to the supervisor."""
+        round, so they apply live; a ``serve_swap`` arms a forced refresh
+        that the next round's serving tick applies (without bumping
+        ``weights_version``); a ``checkpoint_restart`` verifies the newest
+        slot and raises :class:`ControlRestart` to the supervisor."""
         ctl = obs.control
         for d in ctl.take_round():
             if d.param == "max_staleness":
@@ -764,7 +931,13 @@ class RoundKernel:
                 log(f"control: {d.intervention} cohort_frac "
                     f"{old_f} -> {self._cohort_frac} ({d.reason})")
             elif d.param == "serve_swap":
-                log("control: skip serve_swap (serving is not ported)")
+                if self._serve_sched is None:
+                    log("control: skip serve_swap (serving is off for "
+                        "this run)")
+                    continue
+                self._serve_forced = True
+                log(f"control: {d.intervention} armed a forced serving "
+                    f"refresh ({d.reason})")
         d = ctl.take_restart()
         if d is not None:
             self._flush_ckpt_writer()

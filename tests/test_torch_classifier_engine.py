@@ -293,7 +293,7 @@ def test_driver_defaults_are_the_reference_ones():
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--campaign-spec", "none"], "not ported"),
+    (["--sharded-update"], "not ported"),
     (["--device-data"], "not ported"),
     (["--fused-rounds"], "not ported"),
     (["--overlap-round"], "not ported"),

@@ -52,7 +52,7 @@ def test_driver_refuses_cuda_without_a_card(name, monkeypatch):
 
 
 @pytest.mark.parametrize("name", list(DRIVERS))
-@pytest.mark.parametrize("flag", ["--campaign-spec", "--serve-spec",
+@pytest.mark.parametrize("flag", ["--sharded-update", "--fused-rounds",
                                   "--device-data", "--overlap-round"])
 def test_driver_refuses_unported_knobs(name, flag, capsys):
     with pytest.raises(SystemExit):
