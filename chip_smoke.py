@@ -9,7 +9,9 @@ which stops the script with a non-zero exit if it fails:
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: ``csrc/infonce.cu``, ``csrc/gram.cu`` and ``csrc/quant.cu`` with
    ``nvcc`` for ``sm_90a``, the three compilers started together (the
-   ptxas reports on one line each, the build seconds);
+   ptxas reports on one line each, the build seconds), in a thread while
+   phases 15-21, which launch no hand-written kernel, run; phase 3 and
+   the rest follow them;
 3. InfoNCE kernels vs plain: the forward and backward kernels against
    their plain PyTorch versions at the CPC path's shape (D=4096, P=9), at
    D=8/P=1, D=4099/P=130, D=256/P=1000, with an all-zero column in Z and
@@ -129,8 +131,11 @@ which stops the script with a non-zero exit if it fails:
     restarting at 1 in every epoch; the epoch times and the peak device
     memory;
 17. ``drivers.fedprox_multi`` on ResNet18, Nloop 12 -> 1, Nadmm 5 -> 1 (10
-    rounds), the data cuts: finite, every block changed, z never written
-    back;
+    rounds), the data cuts, with ``--be-verbose``: finite, every block
+    changed, z never written back; one ``verbose:`` line an epoch
+    (blocks x Nadmm x Nepoch = 10), each at its round's block and nadmm
+    with K losses, and a round's lines summed over its epochs and its
+    clients equal to its record's ``loss`` within the four-digit print;
 18. ``drivers.federated_multi --model net --optimizer lbfgs``, Nloop 12 ->
     1, Nadmm 3 -> 1 (5 rounds), the data cuts: finite, every block
     changed, the closure evaluations of every L-BFGS step counted;
@@ -287,14 +292,32 @@ which stops the script with a non-zero exit if it fails:
     (the guard's verdicts read from the client records); the parameters
     and losses finite; the virtual clock waited the recorded backoff over
     3600 in wall time; B1 and B2 launched in every exchanging round.
+31. slice 9, the readers on the card's streams and the full-batch L-BFGS.
+    Phases 28-30 copy their streams to ``build/streams/`` before they
+    delete their directories; on each, the port's readers run as a user
+    runs them (``python -m federated_pytorch_test_tpu_torch.obs.report
+    --json``, ``.obs.trace -o``, ``.obs.clients --json``, ``.obs.profile
+    --json``, all in parallel), each exiting 0: the report's round count
+    and ``bytes_on_wire`` total equal the stream's own, the trace passes
+    ``validate_chrome_trace``, the ledger holds K clients, the profile
+    reads every round and no ``compile`` record.  ``.obs.compare`` of
+    phase 29's stream with itself exits 0 with no regression and no
+    verdict but ok(noise) (rows without a direction carry "info", no
+    verdict).  ``report --selftest --device cuda`` (every chained
+    selftest; the serving ones on the card) exits 0 in a process without
+    ``jax`` in ``sys.modules``.  Then one full-batch L-BFGS step
+    (``batch_mode=False``, the cubic strong-Wolfe search, max_iter 4) on a
+    stiff quadratic of 1,000,000 float32 on the card and the same call on
+    the CPU: the loss falls and stays finite, the closure evaluations
+    agree, x within ``LBFGS_FULL_RTOL`` of max |x|.
 
 Phases 15-21, 24 and 25 run no hand-written kernel (top-k, the
 scatter-add, the L-BFGS update and the VAEs are stock PyTorch, as in the
 JAX package they are XLA; phase 24's q8 exchange is not fused); the
 kernel line's launches are those of phases 5, 26 and 27 (B4, B5; phase
 27's counted in its children), phases 8, 22, 26 and 29 (B3) and phases
-12, 23, 28 and 30 (B1, B2).  Every driver phase before 26 passes
-``--obs-sinks none``.
+12, 23, 28 and 30 (B1, B2); phase 31 runs none.  Every driver phase
+before 26 passes ``--obs-sinks none``.
 
 The line before the last is the per-kernel JSON record (with each
 kernel's host-only time, and B3's stem and B2's in-place fields); the last
@@ -412,10 +435,11 @@ NO_CONSENSUS_ARGV = ["--device", "cuda", "--model", "resnet18", "--Nepoch",
                      str(NO_CONSENSUS_EPOCHS), "--n-train", "1280",
                      "--n-test", "1000", "--no-save-model",
     "--obs-sinks", "none"]
-#: FedProx on ResNet18: Nloop 12 -> 1, Nadmm 5 -> 1 (10 rounds), the data cuts
+#: FedProx on ResNet18: Nloop 12 -> 1, Nadmm 5 -> 1 (10 rounds), the data
+#: cuts, with --be-verbose (one line of per-client losses an epoch)
 FEDPROX_ARGV = ["--device", "cuda", "--model", "resnet18", "--Nloop", "1",
                 "--Nadmm", "1", "--n-train", "1280", "--n-test", "1000",
-                "--no-save-model",
+                "--no-save-model", "--be-verbose",
     "--obs-sinks", "none"]
 #: FedAvg with L-BFGS on Net: Nloop 12 -> 1, Nadmm 3 -> 1 (5 rounds), the
 #: data cuts
@@ -554,6 +578,19 @@ SOAK_ARGV = [
     "--Nloop", "1", "--Nadmm", "1", "--n-train", "1280", "--n-test", "1000",
     "--no-save-model"]
 SOAK_ROUNDS, SOAK_PREEMPT_ROUND = 10, 6
+#: phase 31: the streams of phases 28-30 kept for the readers, under
+#: build/ (listed in .gitignore)
+STREAMS_DIR = os.path.join(ROOT, "build", "streams")
+KEPT_STREAMS: dict = {}
+#: phase 31's full-batch L-BFGS: a stiff quadratic 0.5 * sum(h * x^2) over
+#: n float32 with h log-spaced over [1e-2, 1e2], one step of max_iter
+#: inner iterations with the cubic strong-Wolfe search, on the card and on
+#: the CPU from the same x0.  The two sum 1e6 products in other orders, and
+#: the search's cubic steps divide differences of such sums, so x is held
+#: at LBFGS_FULL_RTOL of max |x| (the closure evaluations, which count the
+#: search's branches, exactly)
+LBFGS_FULL_N, LBFGS_FULL_ITERS = 1_000_000, 4
+LBFGS_FULL_RTOL = 1e-3
 QUANTIZE_SITE = "federated_pytorch_test_tpu/ops/comm_kernels.py:124"
 DEQUANT_SITE = "federated_pytorch_test_tpu/ops/comm_kernels.py:182"
 #: phase 9's separated case: each moved client's offset has squared norm
@@ -1901,12 +1938,19 @@ def run_fedprox(dev) -> None:
 
     from federated_pytorch_test_tpu_torch.drivers import fedprox_multi
 
+    logged = []
+
+    def tee(msg: str) -> None:
+        logged.append(msg)
+        log(msg)
+
     with recording_comm_rounds() as (rounds, _):
         t0 = time.perf_counter()
-        trainer, state, history = fedprox_multi.main(FEDPROX_ARGV, log=log)
+        trainer, state, history = fedprox_multi.main(FEDPROX_ARGV, log=tee)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     log(f"fedprox: {len(history)} rounds in {wall:.2f} s")
+    check_verbose(logged, history, trainer.cfg)
     for rec in history:
         log(json.dumps({k: rec[k] for k in (
             "block", "N", "loss", "primal_residual", "dual_residual",
@@ -1922,6 +1966,48 @@ def run_fedprox(dev) -> None:
     same = blocks_unchanged(trainer, state)
     if same:
         fail(f"blocks {same} did not change")
+
+
+def check_verbose(logged: list, history: list, cfg) -> None:
+    """Phase 17's ``--be-verbose`` lines: one an epoch of every round, at
+    the round's block and nadmm; the per-client losses of a round's lines,
+    summed over its epochs and then over the clients as the engine sums
+    them, equal the round record's ``loss`` within the four-digit print
+    (5e-5 of max(1, |value|) a printed value) and 1e-6 of the loss."""
+    lines = []
+    for msg in logged:
+        if not msg.startswith("verbose: "):
+            continue
+        head, _, arr = msg.partition(" client_loss=")
+        coords = dict(kv.split("=") for kv in head.split()[1:])
+        vals = np.asarray(arr.strip()[1:-1].split(), np.float64)
+        lines.append(((int(coords["block"]), int(coords["nadmm"]),
+                       int(coords["epoch"])), vals))
+    want = len(history) * cfg.Nepoch
+    log(f"fedprox: {len(lines)} verbose lines (blocks x Nadmm x Nepoch = "
+        f"{len(history) // cfg.Nadmm} x {cfg.Nadmm} x {cfg.Nepoch} = {want})")
+    if len(lines) != want:
+        fail(f"--be-verbose printed {len(lines)} lines, not {want}")
+    worst = 0.0
+    for r, rec in enumerate(history):
+        mine = lines[r * cfg.Nepoch:(r + 1) * cfg.Nepoch]
+        coords = [c for c, _ in mine]
+        if coords != [(rec["block"], rec["nadmm"], e)
+                      for e in range(cfg.Nepoch)]:
+            fail(f"round {r}: verbose coordinates {coords}")
+        vals = [v for _, v in mine]
+        if any(v.shape != (cfg.K,) for v in vals):
+            fail(f"round {r}: verbose losses of shapes "
+                 f"{[v.shape for v in vals]}, not ({cfg.K},)")
+        total = float(np.sum(sum(vals)))
+        tol = (sum(float(np.sum(5e-5 * np.maximum(1.0, np.abs(v))))
+                   for v in vals) + 1e-6 * abs(rec["loss"]))
+        worst = max(worst, abs(total - rec["loss"]) / tol)
+        if not abs(total - rec["loss"]) <= tol:
+            fail(f"round {r}: verbose losses sum to {total}, the round "
+                 f"record's loss is {rec['loss']} (tolerance {tol:.3e})")
+    log(f"fedprox: verbose sums vs round loss, worst |diff| / tolerance "
+        f"{worst:.3f}")
 
 
 def counting_closures():
@@ -2756,14 +2842,22 @@ def cpc_flat_blocks(trainer) -> dict:
     return out
 
 
+def keep_stream(name: str, path: str) -> None:
+    """Copy a phase's record stream out of its temporary directory for
+    phase 31's readers (:data:`STREAMS_DIR`)."""
+    import shutil
+
+    os.makedirs(STREAMS_DIR, exist_ok=True)
+    KEPT_STREAMS[name] = shutil.copyfile(
+        path, os.path.join(STREAMS_DIR, f"{name}.jsonl"))
+
+
 def read_stream(path: str) -> list:
     """The records of a JSONL stream, each checked with the port's
     ``validate_record``."""
-    from federated_pytorch_test_tpu_torch.obs.schema import validate_record
+    from federated_pytorch_test_tpu_torch.obs.report import read_records
 
-    with open(path) as f:
-        return [validate_record(json.loads(line)) for line in f
-                if line.strip()]
+    return read_records(path)
 
 
 def run_cpc_attack(dev) -> dict:
@@ -3071,6 +3165,7 @@ def run_chaos(dev) -> dict:
         launches = dict(quant.LAUNCHES)
         path = os.path.join(work, "obs", "consensus_multi.jsonl")
         records = read_stream(path)
+        keep_stream("chaos", path)
         ok = replay([path])
         # one restart's backoff forged: the replay must refuse it
         forged = os.path.join(work, "forged.jsonl")
@@ -3170,6 +3265,7 @@ def run_serving(dev) -> int:
         launches = gram.LAUNCHES["gram"]
         path = os.path.join(work, "obs", "consensus_multi.jsonl")
         records = read_stream(path)
+        keep_stream("serving", path)
         ok = replay([path])
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -3340,8 +3436,9 @@ def run_soak_campaign(dev) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = dict(quant.LAUNCHES)
-        records = read_stream(os.path.join(work, "obs",
-                                           "federated_multi.jsonl"))
+        path = os.path.join(work, "obs", "federated_multi.jsonl")
+        records = read_stream(path)
+        keep_stream("soak", path)
     finally:
         common.run_soak = soak
         shutil.rmtree(work, ignore_errors=True)
@@ -3398,12 +3495,174 @@ def run_soak_campaign(dev) -> dict:
     return launches
 
 
+
+def reader(module: str, *args: str) -> str:
+    """``python -m <module> <args>`` from the checkout, as a user runs a
+    reader; its standard output.  Fails the script unless it exits 0."""
+    p = subprocess.run([sys.executable, "-m", module, *args], cwd=ROOT,
+                       capture_output=True, text=True, timeout=600)
+    if p.returncode != 0:
+        fail(f"{module} {' '.join(args)} exited {p.returncode}: "
+             f"{p.stderr[-2000:]}")
+    return p.stdout
+
+
+def check_stream_reads(name: str, path: str, outs: dict) -> None:
+    """Phase 31's checks on one stream, from the outputs of report,
+    trace, clients and profile."""
+    from federated_pytorch_test_tpu_torch.obs.trace import (
+        validate_chrome_trace,
+    )
+
+    records = read_stream(path)
+    rounds = [r for r in records if r["event"] == "round"]
+    wire = [r["bytes_on_wire"] for r in rounds
+            if isinstance(r.get("bytes_on_wire"), (int, float))]
+    K = next(r["config"]["K"] for r in records
+             if r["event"] == "run_header")
+    s = json.loads(outs["report"])
+    with open(trace_path(name)) as f:
+        trace = json.load(f)
+    validate_chrome_trace(trace)
+    spans = sum(1 for e in trace["traceEvents"] if e["ph"] == "X")
+    led = json.loads(outs["clients"])
+    prof = json.loads(outs["profile"])
+    log(f"readers {name}: {len(records)} records; report rounds "
+        f"{s['rounds']} (stream {len(rounds)}), bytes_on_wire_total "
+        f"{s['bytes_on_wire_total']} (stream {sum(wire) if wire else None}),"
+        f" segments {s['segments']}, status {s['status']}; trace {spans} "
+        f"spans; ledger {len(led['ranking'])} clients, top offender "
+        f"{led['summary'].get('top_offender')}; profile rounds "
+        f"{prof['rounds']}, compile events {prof['compile_events']}, "
+        f"attribution coverage {prof['attribution']['coverage']}")
+    if s["rounds"] != len(rounds) or s["bytes_on_wire_total"] != (
+            sum(wire) if wire else None):
+        fail(f"{name}: the report's rounds or bytes on the wire differ "
+             "from the stream's own")
+    if spans == 0 or len(led["ranking"]) != K or \
+            led["summary"].get("clients_observed") != K:
+        fail(f"{name}: {spans} trace spans, a ledger of "
+             f"{len(led['ranking'])} clients (K = {K})")
+    if prof["rounds"] != len(rounds) or prof["compile_events"]:
+        fail(f"{name}: the profile reads {prof['rounds']} rounds and "
+             f"{prof['compile_events']} compile events")
+
+
+def trace_path(name: str) -> str:
+    return os.path.join(STREAMS_DIR, f"{name}.trace.json")
+
+
+def run_readers() -> None:
+    """Phase 31's readers: each of phase 28-30's streams through the
+    port's report, trace, clients and profile CLIs, phase 29's stream
+    compared with itself, and the chained report selftest on the card in
+    a process that imports no JAX; all the processes in parallel."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    if sorted(KEPT_STREAMS) != ["chaos", "serving", "soak"]:
+        fail(f"phase 31 got the streams {sorted(KEPT_STREAMS)}")
+    t0 = time.perf_counter()
+    obs = "federated_pytorch_test_tpu_torch.obs."
+    selftest = ("import sys; from federated_pytorch_test_tpu_torch.obs "
+                "import report; rc = report.main(['--selftest', "
+                "'--device', 'cuda']); print('jax loaded:', 'jax' in "
+                "sys.modules); sys.exit(rc)")
+    serving = KEPT_STREAMS["serving"]
+    with ThreadPoolExecutor(16) as pool:
+        st = pool.submit(subprocess.run, [sys.executable, "-c", selftest],
+                         cwd=ROOT, capture_output=True, text=True,
+                         timeout=600)
+        cmp = pool.submit(reader, obs + "compare", serving, "--baseline",
+                          serving, "--json")
+        reads = {name: {
+            "report": pool.submit(reader, obs + "report", "--json", path),
+            "trace": pool.submit(reader, obs + "trace", path, "-o",
+                                 trace_path(name)),
+            "clients": pool.submit(reader, obs + "clients", "--json", path),
+            "profile": pool.submit(reader, obs + "profile", "--json", path),
+        } for name, path in sorted(KEPT_STREAMS.items())}
+        for name, futures in reads.items():
+            check_stream_reads(name, KEPT_STREAMS[name],
+                               {k: f.result() for k, f in futures.items()})
+        res = json.loads(cmp.result())
+        st = st.result()
+    verdicts = {}
+    for row in res["rows"]:
+        for c in row["cells"]:
+            verdicts[c["verdict"]] = verdicts.get(c["verdict"], 0) + 1
+    log(f"readers: compare of the serving stream with itself: "
+        f"{res['regressions']} regressions, verdicts {verdicts}")
+    if res["regressions"] or set(verdicts) - {"ok(noise)", "info"}:
+        fail("the serving stream compared with itself gives a verdict "
+             "other than ok(noise) (info rows carry none)")
+    log("readers: report --selftest on the card: "
+        + " | ".join(st.stdout.strip().splitlines()[-4:]))
+    if st.returncode != 0 or not st.stdout.strip().endswith(
+            "jax loaded: False"):
+        fail(f"report --selftest exited {st.returncode}: {st.stderr[-2000:]}")
+    log(f"readers: phase 31's readers in {time.perf_counter() - t0:.2f} s")
+
+
+def run_lbfgs_full(dev) -> None:
+    """Phase 31's full-batch L-BFGS: one step of the cubic strong-Wolfe
+    search on a stiff quadratic of LBFGS_FULL_N float32 on the card,
+    and the same call on the CPU."""
+    import torch
+
+    from federated_pytorch_test_tpu_torch.optim.lbfgs import LBFGSNew
+
+    gen = torch.Generator().manual_seed(31)
+    h = torch.logspace(-2, 2, LBFGS_FULL_N)
+    x0 = torch.randn(LBFGS_FULL_N, generator=gen)
+    opt = LBFGSNew(history_size=7, max_iter=LBFGS_FULL_ITERS,
+                   line_search_fn=True, batch_mode=False)
+
+    def one_step(device):
+        hd = h.to(device)
+        f = lambda x: 0.5 * torch.sum(hd * x * x)
+        x = x0.to(device)
+        t0 = time.perf_counter()
+        x1, st, loss0 = opt.step(f, x, opt.init(x))
+        loss1 = float(f(x1))
+        return x1.cpu(), st, float(loss0), loss1, time.perf_counter() - t0
+
+    gx, gst, g0, g1, gs = one_step(dev)
+    cx, cst, c0, c1, cs = one_step(torch.device("cpu"))
+    err = float((gx - cx).abs().max() / cx.abs().max())
+    log(f"lbfgs full batch: n {LBFGS_FULL_N}, max_iter {LBFGS_FULL_ITERS}; "
+        f"card loss {g0:.6e} -> {g1:.6e}, {gst.func_evals} closure "
+        f"evaluations, t {float(gst.t):.6e}, {gs:.3f} s; CPU loss "
+        f"{c0:.6e} -> {c1:.6e}, {cst.func_evals} evaluations, {cs:.3f} s; "
+        f"max |x_card - x_cpu| / max |x_cpu| {err:.3e} (limit "
+        f"{LBFGS_FULL_RTOL})")
+    if not (np.isfinite(g1) and g1 < g0 and bool(torch.isfinite(gx).all())):
+        fail(f"the full-batch L-BFGS did not lower the loss: {g0} -> {g1}")
+    if gst.func_evals != cst.func_evals or not err <= LBFGS_FULL_RTOL:
+        fail("the full-batch L-BFGS on the card differs from the CPU")
+
 def main() -> None:
     import torch
 
+    from concurrent.futures import ThreadPoolExecutor
+
+    t_start = time.perf_counter()
     card, dev = check_device()
     sys.path.insert(0, ROOT)
-    build()
+    # phases 15-21 launch no hand-written kernel: they run while the three
+    # compilers of phase 2 do
+    with ThreadPoolExecutor(1) as pool:
+        building = pool.submit(build)
+        captured4, trainer4 = run_slice4(dev)
+        check_topk_path_data(captured4, trainer4)
+        del captured4, trainer4
+        run_no_consensus(dev)
+        run_fedprox(dev)
+        run_lbfgs(dev)
+        run_accuracy_comparison()
+        run_vae("federated_vae", dev)
+        run_vae("federated_vae_cl", dev)
+        building.result()
+    log(f"phases 2 and 15-21 in {time.perf_counter() - t_start:.1f} s")
     path_err, timing, device, extra = check_kernels(dev, card)
     gram_err, gram_timing, gram_device, extra["gram"] = check_gram(dev, card)
     trainer, launches = run_slice(dev)
@@ -3420,15 +3679,6 @@ def main() -> None:
     check_fused_path_data(stack3, trainer3)
     profile_comm_step(trainer3, state3)
     del trainer3, state3, stack3
-    captured4, trainer4 = run_slice4(dev)
-    check_topk_path_data(captured4, trainer4)
-    del captured4, trainer4
-    run_no_consensus(dev)
-    run_fedprox(dev)
-    run_lbfgs(dev)
-    run_accuracy_comparison()
-    run_vae("federated_vae", dev)
-    run_vae("federated_vae_cl", dev)
     gram_launches += run_krum_attack(dev)
     for k, v in run_async_churn(dev).items():
         quant_launches[k] += v
@@ -3445,6 +3695,10 @@ def main() -> None:
     gram_launches += run_serving(dev)
     for k, v in run_soak_campaign(dev).items():
         quant_launches[k] += v
+    t31 = time.perf_counter()
+    run_readers()
+    run_lbfgs_full(dev)
+    log(f"phase 31: {time.perf_counter() - t31:.2f} s")
     log(f"summary: krum's selection on the raw y + rho*x stack, kernel vs "
         f"gram_plain: {raw_krum}")
 
@@ -3478,6 +3732,7 @@ def main() -> None:
             "ms": k_ms, "device_ms": quant_device[name], "plain_ms": p_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": l_ms,
             **extra[name]})
+    log(f"chip_smoke: phases 1-31 in {time.perf_counter() - t_start:.1f} s")
     log(card)                        # again here, where an output tail keeps it
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

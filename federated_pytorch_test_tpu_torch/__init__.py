@@ -17,5 +17,8 @@ quantized collective (``ops/packed_reduce.py``) and its quantize and
 dequantize-accumulate kernels (``csrc/quant.cu``); the other classifier
 drivers and the VAEs; and the robustness shell of a round
 (``train/rounds.py``, ``train/faults.py``, ``population/``) with the
-mid-run checkpoint and resume (``utils/checkpoint.py``).
+mid-run checkpoint and resume (``utils/checkpoint.py``); the record
+stream and its readers (``obs/``), the control plane and restart
+supervisor (``control/``), the serving plane (``serve/``) and the soak
+campaigns (``campaign/``).
 """

@@ -52,3 +52,25 @@ class VirtualClock:
         return (f"VirtualClock(accel={self.accel:g}, "
                 f"virtual_slept={self.virtual_slept:.3f}s, "
                 f"wall_slept={self.wall_slept:.3f}s)")
+
+
+def selftest() -> str:
+    """No real waiting: a recording fake stands in for time.sleep."""
+    waits: list = []
+    c = VirtualClock(accel=120.0, sleep=waits.append)
+    c.sleep(60.0)
+    c.sleep(0.0)
+    c.sleep(6.0)
+    assert waits == [0.5, 0.05], waits
+    assert c.virtual_slept == 66.0 and abs(c.wall_slept - 0.55) < 1e-12
+    try:
+        VirtualClock(accel=0.0)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("accel=0 accepted")
+    return "virtual clock selftest OK: 66.0 virtual s in 0.55 wall s"
+
+
+if __name__ == "__main__":
+    print(selftest())

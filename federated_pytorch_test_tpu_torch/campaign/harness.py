@@ -86,3 +86,41 @@ def run_soak(build_trainer, cfg, checkpoint_path: str, *,
         run_kwargs=run_kwargs, retry_on=retry_on, log=log,
         sleep=clock.sleep, engine=engine)
     return result, clock
+
+
+def selftest() -> str:
+    """Pure checks of accel resolution and health-window derivation."""
+    sched = CampaignSchedule.parse(
+        "hours=48,round_minutes=30,diurnal=0.5,accel=120,"
+        "health_window_hours=4")
+
+    class _Cfg:
+        campaign_accel = 0.0
+        health_window = 8
+
+    assert resolve_accel(_Cfg(), sched) == 120.0
+    cfg = _Cfg()
+    cfg.campaign_accel = 600.0
+    assert resolve_accel(cfg, sched) == 600.0       # CLI wins
+    plain = CampaignSchedule.parse("hours=2,round_minutes=30,diurnal=0.5")
+    assert resolve_accel(_Cfg(), plain) == 1.0      # real time default
+
+    # 4 virtual hours at 30-minute rounds -> 8-round health window
+    @dataclasses.dataclass
+    class _DCfg:
+        health_window: int = 2
+
+    assert soak_config(_DCfg(), sched).health_window == 8
+    assert soak_config(_DCfg(), plain).health_window == 2  # untouched
+    try:
+        run_soak(None, _DCfg(), "nope")
+    except (ValueError, AttributeError):
+        pass
+    else:                                            # pragma: no cover
+        raise AssertionError("run_soak must reject campaign-off configs")
+    return ("campaign harness selftest OK: accel resolution and "
+            "health-window mapping are pure")
+
+
+if __name__ == "__main__":                           # pragma: no cover
+    print(selftest())

@@ -354,3 +354,50 @@ class CampaignSchedule:
                 out.append((int(r), self.record_fields(w)))
             last_hour = w.hour
         return out
+
+
+def selftest() -> str:
+    """Deterministic self-check of the schedule compiler (chained into
+    ``report --selftest``): purity across independent parses, the
+    diurnal/storm/burst/preempt algebra, and the grammar's rejections."""
+    spec = ("hours=48,round_minutes=30,diurnal=0.6,leave=0.2,join=0.5,"
+            "storm=0.3,storm_len=2,burst=0.25,burst_len=1,"
+            "preempt_at=12+36,seed=9")
+    a = CampaignSchedule.parse(spec)
+    b = CampaignSchedule.parse(spec)
+    assert a == b, "parse is not pure"
+    rounds = range(a.total_rounds)
+    wa = [a.window(r) for r in rounds]
+    wb = [b.window(r) for r in reversed(rounds)]
+    assert wa == list(reversed(wb)), "window() is stateful"
+    assert {w.hour for w in wa} == set(range(48)), "hour coverage"
+    arr = [w.arrival_frac for w in wa]
+    assert min(arr) == round(1.0 - 0.6, 6) and max(arr) == 1.0, arr
+    assert a.preempt_rounds() == (24, 72), a.preempt_rounds()
+    assert sum(w.preempt_now for w in wa) == 2
+    # derived FaultSpec: seeded families see the window probabilities
+    w12 = a.window(25)
+    fs = a.spec_for(w12)
+    assert fs.drop == w12.drop_p and fs.seed == 9 and fs.preempt == 0.0
+    # emission rule: 1 per hour + the preempt re-run rounds; resuming
+    # mid-campaign replays the identical tail
+    em = a.expected_emissions(list(rounds))
+    tail = a.expected_emissions(list(rounds)[51:])
+    assert em[26:] == tail[1:], "resume tail diverges"
+    for bad in ("hours=0,diurnal=1", "diurnal=2", "storm_len=0,storm=1",
+                "nonsense", "what=1", "hours=48"):
+        try:
+            CampaignSchedule.parse(bad)
+        except ValueError:
+            pass
+        else:
+            raise AssertionError(f"{bad!r} parsed")
+    assert CampaignSchedule.parse("none") is None
+    assert CampaignSchedule.parse(None) is None
+    return (f"campaign schedule selftest OK: {len(wa)} windows, "
+            f"{len(em)} emissions, preempts at rounds "
+            f"{a.preempt_rounds()}")
+
+
+if __name__ == "__main__":
+    print(selftest())

@@ -30,8 +30,8 @@ from typing import Any, Dict, List, Optional, Tuple
 
 from federated_pytorch_test_tpu_torch.control.policy import (
     Controller, ControlPolicy)
-from federated_pytorch_test_tpu_torch.obs.schema import (
-    SchemaError, validate_record)
+from federated_pytorch_test_tpu_torch.obs.report import read_records
+from federated_pytorch_test_tpu_torch.obs.schema import SchemaError
 
 #: decision-content fields replay compares (mode/applied are engine-side
 #: facts — whether the knob was actually turned — not decision content)
@@ -373,27 +373,6 @@ def check_serve_records(segments: List[List[Dict[str, Any]]],
     return checked
 
 
-def read_records(path: str, validate: bool = True) -> List[Dict[str, Any]]:
-    """Parse a JSONL run file; optionally schema-validate every record."""
-    records = []
-    with open(path) as f:
-        for lineno, line in enumerate(f, 1):
-            line = line.strip()
-            if not line:
-                continue
-            try:
-                rec = json.loads(line)
-            except json.JSONDecodeError as e:
-                raise SchemaError(f"{path}:{lineno}: not JSON ({e})")
-            if validate:
-                try:
-                    validate_record(rec)
-                except SchemaError as e:
-                    raise SchemaError(f"{path}:{lineno}: {e}")
-            records.append(rec)
-    return records
-
-
 def replay(records: List[Dict[str, Any]]) -> Tuple[List[str], Dict[str, int]]:
     """Full replay check; returns (errors, stats)."""
     errors: List[str] = []
@@ -410,14 +389,205 @@ def replay(records: List[Dict[str, Any]]) -> Tuple[List[str], Dict[str, int]]:
                     "serve_records": n_serve}
 
 
+def selftest() -> str:
+    """Synthesize a stream through the REAL recorder+controller pipeline,
+    then assert replay reproduces it (exit 0) and detects tampering
+    (exit 1) — chained into ``report --selftest``.  The JAX selftest's
+    elastic-reshape case is left out with the check it exercises."""
+    import os
+    import tempfile
+
+    from federated_pytorch_test_tpu_torch.control.policy import (
+        controller_from_config)
+    from federated_pytorch_test_tpu_torch.obs.recorder import make_recorder
+
+    config = {"K": 2, "control": "observe", "control_policy": "eager",
+              "compress": "none", "max_staleness": 4, "trim_frac": 0.1,
+              "default_batch": 128, "robust_agg": "none",
+              "fused_collective": False, "async_rounds": False,
+              "health_window": 8, "seed": 0, "restart_backoff": 1.0}
+
+    def synth(d: str, rounds, mesh: Optional[int] = None,
+              name: str = "ctl-selftest") -> str:
+        rec = make_recorder("jsonl", d, run_name=name,
+                            engine="selftest", algorithm="fedavg")
+        controller_from_config(config, recorder=rec)
+        rec.open(config=config,
+                 mesh_shape=None if mesh is None else {"clients": mesh})
+        for i, comm in enumerate(rounds):
+            rec.round({"round_index": i, "nloop": 0, "block": 0,
+                       "nadmm": i, "N": 10, "loss": 1.0, "rho": 1.0,
+                       "round_seconds": 1.0, "comm_seconds": comm,
+                       "images": 256})
+        rec.close()
+        return os.path.join(d, f"{name}.jsonl")
+
+    with tempfile.TemporaryDirectory() as d:
+        # comm fraction 0.8 for 2 rounds trips the eager preset's
+        # escalation streak — exactly one decision fires
+        path = synth(d, [0.8, 0.8, 0.1, 0.1])
+        records = read_records(path)
+        ctl_recs = [r for r in records if r.get("event") == "control"]
+        assert len(ctl_recs) == 1, ctl_recs
+        assert ctl_recs[0]["intervention"] == "escalate_compression", \
+            ctl_recs
+        assert ctl_recs[0]["to_value"] == "q8", ctl_recs
+        assert "time_unix" not in ctl_recs[0], \
+            "control records must not carry wall-clock time"
+        errors, stats = replay(records)
+        assert not errors, errors
+        assert stats["policy_records"] == 1, stats
+
+        # healthy stream: zero decisions, replay still passes
+        d2 = os.path.join(d, "healthy")
+        os.makedirs(d2, exist_ok=True)
+        errors2, _ = replay(read_records(synth(d2, [0.1, 0.1, 0.1])))
+        assert not errors2, errors2
+
+        # tampering: flip the decision's to_value -> divergence
+        tampered = []
+        for r in records:
+            r = dict(r)
+            if r.get("event") == "control":
+                r["to_value"] = "topk"
+            tampered.append(r)
+        errors3, _ = replay(tampered)
+        assert errors3 and "diverges" in errors3[0], errors3
+
+        # tampering: drop the record entirely -> "missing from stream"
+        dropped = [r for r in records if r.get("event") != "control"]
+        errors4, _ = replay(dropped)
+        assert errors4 and "missing from the stream" in errors4[0], \
+            errors4
+
+        # supervisor backoff verification catches a forged value
+        from federated_pytorch_test_tpu_torch.control.supervisor import (
+            restart_backoff_seconds)
+        from federated_pytorch_test_tpu_torch.obs.schema import SCHEMA_VERSION
+        good = restart_backoff_seconds(1.0, 0, 1)
+        sup = {"event": "control", "schema": SCHEMA_VERSION,
+               "run_id": "x", "round_index": 3, "source": "supervisor",
+               "mode": "act", "applied": True, "intervention": "restart",
+               "param": "run", "attempt": 1, "backoff_seconds": good,
+               "reason": "selftest"}
+        errors5, _ = replay(records + [sup])
+        assert not errors5, errors5
+        errors6, _ = replay(records
+                            + [dict(sup, backoff_seconds=good + 1.0)])
+        assert errors6 and "seeded formula" in errors6[0], errors6
+
+        # population cohorts: registry_ids re-derive from the seeded
+        # sampler; a tampered id list is a divergence
+        from federated_pytorch_test_tpu_torch.population.sampler import (
+            sample_cohort)
+        d5 = os.path.join(d, "pop")
+        os.makedirs(d5, exist_ok=True)
+        base = read_records(synth(d5, [0.1, 0.1], name="pop"))
+        popped = [dict(r, config=dict(config, population=16))
+                  if r.get("event") == "run_header" else r for r in base]
+        clients = []
+        for r in base:
+            if r.get("event") == "round":
+                ids = sample_cohort(16, 2, seed=0, nloop=r["nloop"],
+                                    ci=r["block"], nadmm=r["nadmm"],
+                                    method="uniform")
+                clients.append({"event": "client",
+                                "schema": SCHEMA_VERSION, "run_id": "x",
+                                "round_index": r["round_index"],
+                                "clients": 2,
+                                "registry_ids": ids.tolist()})
+        errors10, stats10 = replay(popped + clients)
+        assert not errors10, errors10
+        assert stats10["cohort_records"] == 2, stats10
+        bad = [dict(c) for c in clients]
+        bad[0]["registry_ids"] = [(v + 1) % 16
+                                  for v in bad[0]["registry_ids"]]
+        errors11, _ = replay(popped + bad)
+        assert errors11 and "seeded draw" in errors11[0], errors11
+        # registry_ids on a population-off stream is itself a divergence
+        errors12, _ = replay(base + clients)
+        assert errors12 and "population off" in errors12[0], errors12
+
+        # campaign windows: records re-derive from the header's
+        # campaign_spec + completed round indices; tampering a window
+        # field, dropping an emission, or forging a record on a
+        # campaign-off stream all diverge
+        from federated_pytorch_test_tpu_torch.campaign.schedule import (
+            CampaignSchedule)
+        spec = "hours=3,round_minutes=30,diurnal=0.5,drop=0.2,seed=9"
+        sched = CampaignSchedule.parse(spec)
+        d6 = os.path.join(d, "campaign")
+        os.makedirs(d6, exist_ok=True)
+        camp_base = read_records(
+            synth(d6, [0.1] * sched.total_rounds, name="campaign"))
+        camped = [dict(r, config=dict(config, campaign_spec=spec))
+                  if r.get("event") == "run_header" else r
+                  for r in camp_base]
+        camp_recs = [dict({"event": "campaign",
+                           "schema": SCHEMA_VERSION, "run_id": "x"},
+                          **fields)
+                     for _, fields in sched.expected_emissions(
+                         range(sched.total_rounds))]
+        errors13, stats13 = replay(camped + camp_recs)
+        assert not errors13, errors13
+        assert stats13["campaign_records"] == len(camp_recs) >= 3, stats13
+        bad_camp = [dict(c) for c in camp_recs]
+        bad_camp[1]["drop_p"] = round(bad_camp[1]["drop_p"] + 0.01, 6)
+        errors14, _ = replay(camped + bad_camp)
+        assert errors14 and "diverges" in errors14[0], errors14
+        errors15, _ = replay(camped + camp_recs[:-1])
+        assert errors15 and "missing from the stream" in errors15[0], \
+            errors15
+        # campaign record on a campaign-off stream is a forgery
+        errors16, _ = replay(camp_base + camp_recs[:1])
+        assert errors16 and "no campaign" in errors16[0], errors16
+
+        # serve records: the pure fields re-derive from the header's
+        # serve_spec + completed rounds; tampering the version, dropping
+        # a round, or forging a record on a serving-off stream diverge
+        from federated_pytorch_test_tpu_torch.serve.batcher import ServeSchedule
+        sspec = "qps=16,round_minutes=0.5,swap_every=2,seed=5"
+        ssched = ServeSchedule.parse(sspec)
+        d7 = os.path.join(d, "serve")
+        os.makedirs(d7, exist_ok=True)
+        serve_base = read_records(synth(d7, [0.1] * 4, name="serve"))
+        served = [dict(r, config=dict(config, serve_spec=sspec))
+                  if r.get("event") == "run_header" else r
+                  for r in serve_base]
+        serve_recs = [dict({"event": "serve", "schema": SCHEMA_VERSION,
+                            "run_id": "x", "serve_qps": 123.4}, **fields)
+                      for _, fields in ssched.expected_records(range(4))]
+        errors17, stats17 = replay(served + serve_recs)
+        assert not errors17, errors17
+        assert stats17["serve_records"] == 4, stats17
+        bad_serve = [dict(c) for c in serve_recs]
+        bad_serve[2]["weights_version"] += 1
+        errors18, _ = replay(served + bad_serve)
+        assert errors18 and "diverges" in errors18[0], errors18
+        errors19, _ = replay(served + serve_recs[:-1])
+        assert errors19 and "missing from the stream" in errors19[0], \
+            errors19
+        errors20, _ = replay(serve_base + serve_recs[:1])
+        assert errors20 and "serving off" in errors20[0], errors20
+        json.dumps(stats)  # stats stay JSON-representable
+    return "control replay selftest: OK (decisions reproduce; tampering detected)"
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     p = argparse.ArgumentParser(
         prog="python -m federated_pytorch_test_tpu_torch.control.replay",
         description="Re-derive control decisions from a recorded obs "
                     "JSONL and diff against the recorded control "
                     "records")
-    p.add_argument("path", help="run JSONL file")
+    p.add_argument("path", nargs="?", help="run JSONL file")
+    p.add_argument("--selftest", action="store_true",
+                   help="run the built-in replay selftest and exit")
     args = p.parse_args(argv)
+    if args.selftest:
+        print(selftest())
+        return 0
+    if not args.path:
+        p.error("a run JSONL path is required (or --selftest)")
     try:
         records = read_records(args.path)
     except (OSError, SchemaError) as e:

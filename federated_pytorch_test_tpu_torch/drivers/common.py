@@ -57,7 +57,7 @@ MODEL_CHOICES = ("auto",) + tuple(_MODELS)
 #: have yet (ROADMAP.md): given on the command line, they raise
 UNPORTED = (
     "fused-rounds", "overlap-staging", "overlap-round",
-    "sharded-update", "device-data", "be-verbose")
+    "sharded-update", "device-data")
 
 #: parse_config's default of a ``fixed`` field, to tell it from a given one
 _FIXED = object()

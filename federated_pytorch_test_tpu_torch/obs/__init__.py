@@ -1,22 +1,38 @@
 """Observability of the port's runs: one schema-validated JSONL stream a
 run (run header, a ``round`` and a ``client`` record a communication
-round, phase spans, watchdog alerts, control records, a summary).
+round, phase spans, watchdog alerts, control records, a summary), and the
+readers of such streams.
 
-Port of ``federated_pytorch_test_tpu/obs/`` without the readers
-(``report``, ``compare``, ``profile``, ``trace``) and the device-cost
-ledger (``costs``); the JAX package's readers read the port's streams.
+Port of ``federated_pytorch_test_tpu/obs/`` without the device-cost ledger
+(``costs``, which observes jit compiles).  The readers are copies of the
+JAX package's: either package's reader reads either package's stream and
+prints the same thing.  They are host tools: they read JSON, never the
+card.
 
 - :mod:`.schema`   -- versioned records and ``validate_record``.
 - :mod:`.sinks`    -- JSONL (with retry and degradation), CSV, stdout and
   in-memory emitters.
 - :mod:`.metrics`  -- host-side counters, gauges and timers.
 - :mod:`.recorder` -- the per-run emitter the engines thread through.
-- :mod:`.clients`  -- the ``client`` record's fields.
 - :mod:`.health`   -- the streaming watchdog (``--health-action``).
+- :mod:`.clients`  -- the ``client`` record's fields, and the client
+  ledger, anomaly ranking and cohort rollup
+  (``python -m federated_pytorch_test_tpu_torch.obs.clients``).
+- :mod:`.report`   -- the run summary and the chained selftests
+  (``python -m federated_pytorch_test_tpu_torch.obs.report``).
+- :mod:`.trace`    -- span timeline to Chrome trace-event JSON
+  (``python -m federated_pytorch_test_tpu_torch.obs.trace``).
+- :mod:`.profile`  -- the cost profile of ``compile`` and round records
+  (``python -m federated_pytorch_test_tpu_torch.obs.profile``).
+- :mod:`.compare`  -- the cross-run regression gate
+  (``python -m federated_pytorch_test_tpu_torch.obs.compare``).
 """
 
 from federated_pytorch_test_tpu_torch.obs.clients import (  # noqa: F401
+    ClientLedger,
     client_round_fields,
+    ledger_from_records,
+    summarize_clients,
 )
 from federated_pytorch_test_tpu_torch.obs.health import (  # noqa: F401
     HEALTH_ACTIONS,

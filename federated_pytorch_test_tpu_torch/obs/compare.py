@@ -1,0 +1,535 @@
+"""Cross-run regression comparison over obs/bench artifacts.
+
+``python -m federated_pytorch_test_tpu_torch.obs.compare RUN... --baseline B``
+diffs N candidate artifacts against a baseline and exits nonzero on
+regression, so CI can gate on it.  A copy of
+``federated_pytorch_test_tpu/obs/compare.py`` for the port: the same
+direction rules, inputs, verdicts and exit codes, over the port's
+``report`` and ``profile``.  Accepted inputs (auto-detected):
+
+- an obs run JSONL (``*.jsonl``) — metrics from
+  :func:`~.report.summarize`: throughput and rounds/sec (higher is
+  better), final loss and comm-overhead fraction (lower is better),
+  compression savings (higher).
+- a bench.py artifact (``artifacts/bench_*.json``) — the headline
+  metric named by its ``metric`` field plus the ``*_ips_chip`` section
+  breakdowns and ``mfu`` (all higher-better).
+- a ``BENCH_rNN.json`` wrapper (``{n, cmd, rc, tail, parsed}``) — the
+  embedded ``parsed`` artifact is unwrapped.
+- ``BASELINE.json`` — its ``published`` dict; when that is empty (no
+  published numbers yet) the comparison says so instead of inventing a
+  verdict.
+
+Honesty about unmeasured data: an artifact with ``measured: false`` has
+value 0.0 by construction; comparing it would manufacture a fake
+regression.  If it embeds a ``last_measured`` reference the headline is
+PROMOTED from there and annotated; otherwise the artifact contributes
+no verdict and the report says "unmeasured".
+
+A candidate bench artifact may carry ``baseline_ref`` (bench.py emits
+it); when no ``--baseline`` flag is given and exactly one candidate is
+compared, that reference is resolved automatically.
+
+Verdicts use a noise-aware relative threshold (``--threshold``, percent,
+default 5%): deltas within the band are "ok(noise)", beyond it "improved"
+or "REGRESSED".  Exit codes: 0 no regression, 1 regression, 2 usage.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+from typing import Any, Dict, List, Optional
+
+#: metric name -> +1 (higher is better) / -1 (lower is better)
+_DIRECTION = {
+    "images_per_sec": +1,
+    "rounds_per_sec": +1,
+    "compression_savings_frac": +1,
+    "loss_final": -1,
+    "comm_overhead_frac": -1,
+    "mfu": +1,
+    "value": +1,
+    # device-cost ledger metrics (schema v6; obs/profile.py): a compile-
+    # time or device-memory regression fails the gate like a throughput
+    # regression does
+    "compile_seconds": -1,
+    "compile_seconds_cold": -1,
+    "peak_device_bytes": -1,
+    "utilization": +1,
+    "cache_hit_rate": +1,
+    # soak campaigns (schema v12; bench.py --soak): the availability
+    # gate — losing availability or losing more rounds to restarts than
+    # the committed SOAK_BASELINE fails CI like a throughput regression
+    "availability_pct": +1,
+    "rounds_lost": -1,
+}
+
+
+def _direction(name: str) -> int:
+    if name in _DIRECTION:
+        return _DIRECTION[name]
+    if name.endswith("_ips_chip") or name.endswith("_throughput"):
+        return +1
+    # roofline comm-path gate (bench.py --smoke): predicted byte counts
+    # regress UP, compression/savings ratios regress DOWN
+    if name.endswith("_wire_bytes"):
+        return -1
+    if name.endswith("_savings_ratio"):
+        return +1
+    # chunked robust-agg gate (bench.py --smoke): the predicted gathered
+    # working set and the compiled memory_analysis peak both regress UP
+    if name.endswith("_gather_bytes"):
+        return -1
+    if name.endswith("_peak_device_bytes"):
+        return -1
+    # soak gate fields on bench --soak artifacts (soak_availability_pct
+    # headline + soak_rounds_lost section metric)
+    if name.endswith("_availability_pct"):
+        return +1
+    if name.endswith("_rounds_lost"):
+        return -1
+    # serving-plane gate (schema v13; bench.py --serve-bench): sustained
+    # QPS regresses DOWN, tail latency and the hot-swap publish gap
+    # regress UP — the rest of the serve_* section (padding waste,
+    # request counts) stays info-direction via the startswith passthrough
+    if name.startswith("serve_qps"):
+        return +1
+    if name.startswith("serve_p99"):
+        return -1
+    if name.startswith("serve_swap_gap"):
+        return -1
+    return 0        # unknown: report the delta, never a verdict
+
+
+class CompareError(ValueError):
+    """Unusable input (unknown shape, unreadable file)."""
+
+
+def expand_candidates(paths: List[str]) -> List[str]:
+    """Resolve the candidate set: each argument may be a file, a
+    directory (all ``*.jsonl`` run streams plus ``bench*.json``
+    artifacts directly inside it), or a glob pattern.  Expansion is
+    sorted per argument — deterministic ordering, so the bench matrix
+    and chaos-test artifact directories gate identically across CI
+    runs.  A directory/glob that matches nothing is an error (a silent
+    empty candidate set would vacuously pass the gate)."""
+    import glob as globlib
+    out: List[str] = []
+    for p in paths:
+        if os.path.isdir(p):
+            hits = sorted(globlib.glob(os.path.join(p, "*.jsonl"))) + \
+                sorted(globlib.glob(os.path.join(p, "bench*.json")))
+            if not hits:
+                raise CompareError(
+                    f"{p}: directory holds no *.jsonl or bench*.json "
+                    "artifacts")
+            out.extend(hits)
+        elif any(ch in p for ch in "*?["):
+            hits = sorted(globlib.glob(p))
+            if not hits:
+                raise CompareError(f"{p}: glob matched no files")
+            out.extend(hits)
+        else:
+            out.append(p)
+    return out
+
+
+def _num(v) -> Optional[float]:
+    if isinstance(v, (int, float)) and not isinstance(v, bool):
+        return float(v)
+    return None
+
+
+def load_source(path: str) -> Dict[str, Any]:
+    """Load one artifact into ``{path, kind, metrics, notes, ...}``."""
+    src: Dict[str, Any] = {"path": path, "kind": "?", "metrics": {},
+                           "notes": [], "baseline_ref": None}
+    if path.endswith(".jsonl"):
+        from federated_pytorch_test_tpu_torch.obs.profile import profile_metrics
+        from federated_pytorch_test_tpu_torch.obs.report import (
+            read_records,
+            summarize,
+        )
+
+        records = read_records(path)
+        s = summarize(records)
+        src["kind"] = f"run ({s.get('engine') or '?'}, {s.get('status')})"
+        for k in ("images_per_sec", "rounds_per_sec", "loss_final",
+                  "comm_overhead_frac", "compression_savings_frac"):
+            v = _num(s.get(k))
+            if v is not None:
+                src["metrics"][k] = v
+        # elastic-federation membership (schema v9): info-direction
+        # metrics (unknown to _DIRECTION -> delta reported, never a
+        # verdict) — a churn run's roster is part of the experiment, so
+        # membership differences against a static baseline must show up
+        # in the diff without gating it
+        for k in ("members_peak", "members_min", "joined_total",
+                  "left_total"):
+            v = _num(s.get(k))
+            if v is not None:
+                src["metrics"][k] = v
+        if s.get("members_peak") is not None:
+            src["notes"].append(
+                f"dynamic membership (min {s.get('members_min')} / peak "
+                f"{s.get('members_peak')} live members): loss/throughput "
+                "diffs vs a static-roster baseline reflect the roster, "
+                "not just the code")
+        if s.get("reshapes"):
+            src["notes"].append(
+                f"{s['reshapes']} mesh reshape(s): segments ran on "
+                "different device counts; wall-clock metrics span both")
+        # client-grain dispersion (schema v10, obs/clients.py): info-
+        # direction rows — per-client norm skew and the anomaly-ranking
+        # top offender, so "is the same client the outlier in both
+        # runs?" is answerable from the diff without gating on it
+        for k in ("client_norm_skew", "client_norm_max",
+                  "client_norm_median", "top_offender",
+                  "top_offender_score"):
+            v = _num(s.get(k))
+            if v is not None:
+                src["metrics"][k] = v
+        if s.get("top_offender") is not None:
+            src["notes"].append(
+                f"client ledger: top offender c{s['top_offender']} "
+                f"(score {s.get('top_offender_score', 0.0):.3f}) over "
+                f"{s.get('client_records')} client record(s) — compare "
+                "across runs for offender stability")
+        # soak availability (schema v12): the two gated numbers of the
+        # availability contract plus info-direction campaign context, so
+        # a soak stream can be gated directly against a baseline stream
+        for k in ("availability_pct", "rounds_lost"):
+            v = _num(s.get(k))
+            if v is not None:
+                src["metrics"][k] = v
+        for k in ("segments", "campaign_records",
+                  "campaign_virtual_hours"):
+            v = _num(s.get(k))
+            if v is not None:
+                src["metrics"][k] = v
+        if s.get("campaign_records"):
+            src["notes"].append(
+                f"soak campaign stream: {s.get('segments')} segment(s), "
+                f"{s.get('campaign_virtual_hours')} virtual h, "
+                f"availability {s.get('availability_pct')}%")
+        # device-cost metrics (schema v6): present only when the run's
+        # ledger emitted them, so pre-v6 streams compare unchanged
+        for k, val in profile_metrics(records).items():
+            v = _num(val)
+            if v is not None:
+                src["metrics"][k] = v
+        if s.get("status") != "completed":
+            src["notes"].append(f"status={s.get('status')}")
+        # control-plane records (schema v8): a supervised run that
+        # restarted or had interventions fire is flagged, never gated —
+        # its wall-clock numbers include recovery work and a changed
+        # config, so a "regression" verdict would be comparing different
+        # experiments
+        if s.get("restarts"):
+            src["notes"].append(
+                f"{s['restarts']} supervised restart(s); wall-clock "
+                "metrics include recovery")
+        elif s.get("controls"):
+            src["notes"].append(
+                f"{s['controls']} control intervention(s) fired "
+                "mid-run")
+        return src
+    try:
+        with open(path) as f:
+            obj = json.load(f)
+    except (OSError, json.JSONDecodeError) as e:
+        raise CompareError(f"{path}: {e}")
+    if not isinstance(obj, dict):
+        raise CompareError(f"{path}: expected a JSON object")
+    if isinstance(obj.get("parsed"), dict):       # BENCH_rNN.json wrapper
+        src["notes"].append(f"BENCH wrapper (iteration {obj.get('n')})")
+        obj = obj["parsed"]
+    if "metric" in obj and "value" in obj:        # bench.py artifact
+        src["kind"] = "bench"
+        src["baseline_ref"] = obj.get("baseline_ref")
+        headline = str(obj["metric"])
+        measured = obj.get("measured", True)
+        if measured:
+            v = _num(obj.get("value"))
+            if v is not None:
+                src["metrics"][headline] = v
+            for k, val in obj.items():
+                # smoke_* covers bench.py --smoke fields: the *_wire_bytes
+                # ones gate (direction -1), the rest report as info
+                # population_* covers bench.py --population-bench: the
+                # *_throughput and *_savings_ratio fields gate by suffix
+                # rule, the K/cohort/wall fields report as info
+                # soak_* covers bench.py --soak: availability/rounds-lost
+                # gate by the direction rules, the rest report as info
+                # serve_* covers bench.py --serve-bench: qps/p99/swap-gap
+                # gate by the direction rules, the rest report as info
+                if (k.endswith("_ips_chip") or k == "mfu"
+                        or k.endswith("_wire_bytes")
+                        or k.endswith("_savings_ratio")
+                        or k.startswith("smoke_")
+                        or k.startswith("population_")
+                        or k.startswith("soak_")
+                        or k.startswith("serve_")):
+                    v = _num(val)
+                    if v is not None:
+                        src["metrics"][k] = v
+        else:
+            last = obj.get("last_measured")
+            v = _num(last.get("value")) if isinstance(last, dict) else None
+            if v is not None:
+                src["metrics"][headline] = v
+                src["notes"].append(
+                    "measured=false; headline PROMOTED from "
+                    f"{last.get('path', '?')} ({last.get('captured_utc')})")
+            else:
+                src["notes"].append(
+                    "measured=false and no last_measured reference — "
+                    "no comparable metrics (unmeasured)")
+        return src
+    if isinstance(obj.get("published"), dict):    # BASELINE.json
+        src["kind"] = "baseline"
+        for k, val in obj["published"].items():
+            v = _num(val)
+            if v is not None:
+                src["metrics"][k] = v
+        if not src["metrics"]:
+            src["notes"].append(
+                "BASELINE.json carries no published numbers yet — "
+                "nothing to compare against")
+        return src
+    raise CompareError(f"{path}: unrecognised artifact shape (not a run "
+                       "JSONL, bench artifact, BENCH wrapper, or baseline)")
+
+
+def compare(baseline: Dict[str, Any], candidates: List[Dict[str, Any]],
+            threshold_pct: float = 5.0) -> Dict[str, Any]:
+    """Per-metric deltas + verdicts.  Returns ``{rows, regressions, notes}``."""
+    thr = abs(threshold_pct) / 100.0
+    names: List[str] = []
+    for source in [baseline] + candidates:
+        for k in source["metrics"]:
+            if k not in names:
+                names.append(k)
+    rows = []
+    regressions = 0
+    for name in names:
+        base = baseline["metrics"].get(name)
+        cells = []
+        for c in candidates:
+            v = c["metrics"].get(name)
+            if v is None or base is None:
+                cells.append({"value": v, "delta": None,
+                              "verdict": "n/a" if v is None else "no-base"})
+                continue
+            delta = (v - base) / abs(base) if base else (0.0 if v == base
+                                                         else float("inf"))
+            sign = _direction(name)
+            if sign == 0:
+                verdict = "info"
+            elif abs(delta) <= thr:
+                verdict = "ok(noise)"
+            elif delta * sign > 0:
+                verdict = "improved"
+            else:
+                verdict = "REGRESSED"
+                regressions += 1
+            cells.append({"value": v, "delta": delta, "verdict": verdict})
+        rows.append({"metric": name, "baseline": base, "cells": cells})
+    notes = [f"{s['path']}: {n}" for s in [baseline] + candidates
+             for n in s["notes"]]
+    return {"rows": rows, "regressions": regressions, "notes": notes,
+            "threshold_pct": abs(threshold_pct)}
+
+
+def _fmt(v: Optional[float]) -> str:
+    if v is None:
+        return "—"
+    return f"{v:,.4g}"
+
+
+def render_markdown(result: Dict[str, Any], baseline: Dict[str, Any],
+                    candidates: List[Dict[str, Any]]) -> str:
+    """``accuracy_comparison``-style markdown matrix."""
+    lines = [f"## Run comparison (threshold ±{result['threshold_pct']:g}%)",
+             "",
+             f"Baseline: `{baseline['path']}` ({baseline['kind']})", ""]
+    hdr = ["metric", "baseline"] + [os.path.basename(c["path"])
+                                    for c in candidates]
+    lines.append("| " + " | ".join(hdr) + " |")
+    lines.append("|" + "---|" * len(hdr))
+    for row in result["rows"]:
+        cells = [row["metric"], _fmt(row["baseline"])]
+        for cell in row["cells"]:
+            if cell["delta"] is None:
+                cells.append(f"{_fmt(cell['value'])} ({cell['verdict']})")
+            else:
+                cells.append(f"{_fmt(cell['value'])} "
+                             f"({cell['delta']:+.1%}, {cell['verdict']})")
+        lines.append("| " + " | ".join(cells) + " |")
+    if not result["rows"]:
+        lines.append("*(no comparable metrics)*")
+    for n in result["notes"]:
+        lines.append(f"- note: {n}")
+    lines.append("")
+    lines.append(f"**{result['regressions']} regression(s)**")
+    return "\n".join(lines)
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    p = argparse.ArgumentParser(
+        prog="python -m federated_pytorch_test_tpu_torch.obs.compare",
+        description="Diff run/bench artifacts against a baseline; exit 1 "
+                    "on regression (CI gate)")
+    p.add_argument("paths", nargs="+",
+                   help="candidate artifacts (run .jsonl, bench .json, "
+                        "BENCH_rNN.json), or a directory / glob of them "
+                        "(expanded sorted, so the candidate order is "
+                        "deterministic)")
+    p.add_argument("--baseline", help="baseline artifact; defaults to the "
+                   "single candidate's embedded baseline_ref")
+    p.add_argument("--threshold", type=float, default=5.0,
+                   help="noise band, percent (default 5)")
+    p.add_argument("--json", action="store_true",
+                   help="emit the comparison as JSON instead of markdown")
+    args = p.parse_args(argv)
+    try:
+        cand_paths = expand_candidates(args.paths)
+        candidates = [load_source(pth) for pth in cand_paths]
+        base_path = args.baseline
+        if base_path is None:
+            refs = [c["baseline_ref"] for c in candidates
+                    if c.get("baseline_ref")]
+            if len(candidates) == 1 and refs:
+                ref = refs[0]
+                if not os.path.exists(ref):   # refs are repo-root relative
+                    rel = os.path.join(os.path.dirname(cand_paths[0]) or ".",
+                                       ref)
+                    ref = rel if os.path.exists(rel) else ref
+                base_path = ref
+                print(f"(baseline from artifact baseline_ref: {base_path})",
+                      file=sys.stderr)
+        if base_path is None:
+            p.error("--baseline is required (no candidate carries a "
+                    "baseline_ref)")
+        baseline = load_source(base_path)
+    except CompareError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    except OSError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    result = compare(baseline, candidates, args.threshold)
+    if args.json:
+        print(json.dumps({"baseline": baseline["path"],
+                          "candidates": [c["path"] for c in candidates],
+                          **result}))
+    else:
+        print(render_markdown(result, baseline, candidates))
+    return 1 if result["regressions"] else 0
+
+
+def selftest() -> None:
+    """Self-vs-self exits 0; a synthetic regression exits 1; used by
+    ``report --selftest``."""
+    import contextlib
+    import io
+    import tempfile
+
+    def run(argv):
+        with contextlib.redirect_stdout(io.StringIO()), \
+                contextlib.redirect_stderr(io.StringIO()):
+            return main(argv)
+
+    art = {"metric": "cifar10_resnet18_consensus_full_round_throughput",
+           "value": 30000.0, "unit": "images/sec/chip", "measured": True,
+           "stem_block_ips_chip": 26000.0, "mfu": 0.36}
+    with tempfile.TemporaryDirectory() as d:
+        base = os.path.join(d, "base.json")
+        with open(base, "w") as f:
+            json.dump(art, f)
+        same = os.path.join(d, "same.json")
+        with open(same, "w") as f:
+            json.dump(dict(art, baseline_ref=base), f)
+        rc = run([same])                        # baseline via baseline_ref
+        assert rc == 0, f"self-vs-self must exit 0, got {rc}"
+        regressed = os.path.join(d, "regressed.json")
+        with open(regressed, "w") as f:
+            json.dump(dict(art, value=20000.0, mfu=0.24), f)
+        rc = run([regressed, "--baseline", base])
+        assert rc == 1, f"regressed artifact must exit 1, got {rc}"
+        unmeasured = os.path.join(d, "unmeasured.json")
+        with open(unmeasured, "w") as f:
+            json.dump({"metric": art["metric"], "value": 0.0,
+                       "measured": False}, f)
+        rc = run([unmeasured, "--baseline", base])
+        assert rc == 0, f"unmeasured artifact must not fake a regression"
+        src = load_source(unmeasured)
+        assert not src["metrics"] and src["notes"], src
+        # directory / glob candidate expansion, deterministic ordering
+        hits = expand_candidates([os.path.join(d, "*.json")])
+        assert hits == sorted([base, regressed, same, unmeasured]), hits
+        rc = run([os.path.join(d, "same.js*"), "--baseline", base])
+        assert rc == 0, f"glob candidate must exit 0, got {rc}"
+        try:
+            expand_candidates([os.path.join(d, "no_such_*")])
+        except CompareError:
+            pass
+        else:
+            raise AssertionError("empty glob must raise (vacuous gate)")
+        # soak availability gate: losing availability or rounds REGRESSES
+        # (direction rules availability_pct/+1, *_rounds_lost/-1)
+        soak = {"metric": "soak_availability_pct", "value": 95.0,
+                "unit": "percent", "measured": True,
+                "soak_rounds_lost": 3.0}
+        sbase = os.path.join(d, "soak_base.json")
+        with open(sbase, "w") as f:
+            json.dump(soak, f)
+        ssame = os.path.join(d, "soak_same.json")
+        with open(ssame, "w") as f:
+            json.dump(dict(soak, baseline_ref=sbase), f)
+        assert run([ssame]) == 0, "soak self-vs-self must exit 0"
+        sbad = os.path.join(d, "soak_bad.json")
+        with open(sbad, "w") as f:
+            json.dump(dict(soak, value=70.0, soak_rounds_lost=9.0), f)
+        assert run([sbad, "--baseline", sbase]) == 1, \
+            "availability drop must exit 1"
+        assert _direction("availability_pct") == +1
+        assert _direction("rounds_lost") == -1
+        assert _direction("soak_availability_pct") == +1
+        assert _direction("soak_rounds_lost") == -1
+        # serving gate: dropping QPS or growing tail latency / swap gap
+        # REGRESSES; padding waste is info-direction (reported, not gated)
+        assert _direction("serve_qps_chip") == +1
+        assert _direction("serve_throughput") == +1
+        assert _direction("serve_p99_ms") == -1
+        assert _direction("serve_swap_gap_seconds") == -1
+        assert _direction("serve_padding_waste_frac") == 0
+        serve = {"metric": "serve_qps_chip", "value": 400.0,
+                 "unit": "requests/sec/chip", "measured": True,
+                 "serve_p99_ms": 12.0, "serve_swap_gap_seconds": 0.05,
+                 "serve_padding_waste_frac": 0.2}
+        vbase = os.path.join(d, "serve_base.json")
+        with open(vbase, "w") as f:
+            json.dump(serve, f)
+        vsame = os.path.join(d, "serve_same.json")
+        with open(vsame, "w") as f:
+            json.dump(dict(serve, baseline_ref=vbase), f)
+        assert run([vsame]) == 0, "serve self-vs-self must exit 0"
+        vbad = os.path.join(d, "serve_bad.json")
+        with open(vbad, "w") as f:
+            json.dump(dict(serve, value=200.0, serve_p99_ms=40.0), f)
+        assert run([vbad, "--baseline", vbase]) == 1, \
+            "QPS drop / p99 growth must exit 1"
+        # a padding-waste-only change must NOT gate (info direction)
+        vwaste = os.path.join(d, "serve_waste.json")
+        with open(vwaste, "w") as f:
+            json.dump(dict(serve, serve_padding_waste_frac=0.9), f)
+        assert run([vwaste, "--baseline", vbase]) == 0, \
+            "padding-waste delta must stay info-direction"
+
+
+if __name__ == "__main__":
+    sys.exit(main())

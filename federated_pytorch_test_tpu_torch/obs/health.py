@@ -336,3 +336,49 @@ def monitor_from_config(cfg, recorder=None) -> Optional[HealthMonitor]:
     if recorder is not None:
         recorder.attach_health(mon)
     return mon
+
+
+def selftest() -> None:
+    """Synthetic NaN-streak run must alert; used by ``report --selftest``."""
+    from federated_pytorch_test_tpu_torch.obs.recorder import RunRecorder
+    from federated_pytorch_test_tpu_torch.obs.sinks import MemorySink
+
+    rec = RunRecorder([MemorySink()], engine="selftest",
+                      run_name="health_selftest")
+    mon = HealthMonitor(action="warn", streak=3, n_clients=4)
+    rec.attach_health(mon)
+    rec.open()
+    for i in range(5):
+        rec.round({"round_index": i, "round_seconds": 0.01,
+                   "loss": float("nan") if i >= 1 else 1.0,
+                   "t_start": float(i), "images": 64})
+    rec.close()
+    alerts = [r for r in rec.memory if r["event"] == "alert"]
+    assert alerts, "NaN streak produced no alert record"
+    assert alerts[0]["rule"] == "nonfinite_loss", alerts[0]
+    assert mon.tripped is None, "warn action must not trip an abort"
+    summary = rec.memory[-1]
+    assert summary["event"] == "summary"
+    assert summary.get("alerts_total", 0) == len(alerts), summary
+
+    # fatal actions set `tripped` so the engine can raise
+    mon2 = HealthMonitor(action="checkpoint-abort", streak=2)
+    for i in range(3):
+        mon2.observe({"round_index": i, "loss": float("inf")})
+    assert mon2.tripped is not None
+    try:
+        raise RunHealthAbort(mon2.tripped)
+    except RunHealthAbort as e:
+        assert e.alert["rule"] == "nonfinite_loss"
+
+    # serve_drift: a warmed accuracy baseline then a sustained collapse
+    # must alert; the warmup itself must not (cold start != drift)
+    mon3 = HealthMonitor(action="warn", streak=2, window=4)
+    for i in range(6):
+        mon3.observe_serve({"round_index": i, "serve_accuracy": 0.8})
+    assert not mon3.alerts, "steady serving accuracy must not alert"
+    for i in range(6, 9):
+        mon3.observe_serve({"round_index": i, "serve_accuracy": 0.0})
+    assert mon3.alerts and mon3.alerts[0]["rule"] == "serve_drift", \
+        mon3.alerts
+    assert mon3.alerts[0]["round_index"] == 7

@@ -1,0 +1,714 @@
+"""Run-summary CLI over the obs JSONL artifact.
+
+``python -m federated_pytorch_test_tpu_torch.obs.report run.jsonl``
+parses, schema-validates, and summarises one run file (throughput, comm
+overhead %, bytes saved by compression, fault/guard tallies).
+
+A copy of ``federated_pytorch_test_tpu/obs/report.py`` for the port: the
+same functions, flags, output keys and exit codes, so either package's
+reader reads either package's streams and prints the same summary.
+:func:`read_records` is the port's one JSONL parser (``control.replay``
+and the other readers import it from here).
+
+``--selftest`` synthesises a tiny run through the real
+recorder→JSONL→parse→validate→summarise pipeline and asserts the
+round-trip, then chains every other selftest of the port's readers,
+watchdog, replay, campaign and serving modules (the JAX chain without
+its ``analysis.lint`` canaries, which check the JAX package's source).
+``--device`` is where the selftests that build tensors put them (the
+card unless the caller asks for the CPU).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+from typing import Any, Dict, List, Optional
+
+from federated_pytorch_test_tpu_torch.obs.schema import (
+    SchemaError,
+    validate_record,
+)
+
+
+def read_records(path: str, validate: bool = True) -> List[Dict[str, Any]]:
+    """Parse a JSONL run file; optionally schema-validate every record."""
+    records = []
+    with open(path) as f:
+        for lineno, line in enumerate(f, 1):
+            line = line.strip()
+            if not line:
+                continue
+            try:
+                rec = json.loads(line)
+            except json.JSONDecodeError as e:
+                raise SchemaError(f"{path}:{lineno}: not JSON ({e})")
+            if validate:
+                try:
+                    validate_record(rec)
+                except SchemaError as e:
+                    raise SchemaError(f"{path}:{lineno}: {e}")
+            records.append(rec)
+    return records
+
+
+def record_ips(rec: Dict[str, Any], n_chips: int = 1) -> float:
+    """images/sec(/chip) of one round record (bench throughput unit).
+
+    ``round_seconds == 0`` is possible on very fast fused rounds and on
+    synthetic selftest records — report inf-safe throughput (``inf`` if
+    any images moved, else 0.0) instead of raising ZeroDivisionError.
+    """
+    secs = rec["round_seconds"]
+    if secs == 0:
+        return float("inf") if rec["images"] else 0.0
+    return rec["images"] / secs / max(n_chips, 1)
+
+
+def summarize(records: List[Dict[str, Any]]) -> Dict[str, Any]:
+    """Aggregate a record stream into one stats dict.
+
+    Totals are recomputed from the ``round`` records (the embedded
+    ``summary`` events are reported but not trusted), so a truncated
+    file — killed run, no summary — still summarises.  Handles multiple
+    header/summary segments (a resumed run appends a new segment to the
+    same file).
+    """
+    headers = [r for r in records if r.get("event") == "run_header"]
+    rounds = [r for r in records if r.get("event") == "round"]
+    summaries = [r for r in records if r.get("event") == "summary"]
+    idx = [r["round_index"] for r in rounds]
+    monotonic = all(b > a for a, b in zip(idx, idx[1:]))
+
+    def tot(key):
+        vals = [r[key] for r in rounds if isinstance(r.get(key), (int, float))]
+        return sum(vals) if vals else None
+
+    out: Dict[str, Any] = {
+        "path_schema": max((r.get("schema", 0) for r in records), default=0),
+        "headers": len(headers),
+        "summaries": len(summaries),
+        "rounds": len(rounds),
+        "round_index_first": idx[0] if idx else None,
+        "round_index_last": idx[-1] if idx else None,
+        "monotonic": monotonic,
+        "engine": headers[-1].get("engine") if headers else
+                  (rounds[-1].get("engine") if rounds else None),
+        "algorithm": headers[-1].get("algorithm") if headers else None,
+        "run_id": headers[-1].get("run_id") if headers else None,
+        "status": summaries[-1].get("status") if summaries else "truncated",
+    }
+    for key in ("round_seconds", "stage_seconds", "comm_seconds",
+                "bytes_on_wire", "bytes_dense", "images", "guard_trips",
+                "fault_dropped", "fault_straggled", "fault_corrupted",
+                "bytes_fused", "overlap_seconds"):
+        out[key + "_total"] = tot(key)
+    losses = [r["loss"] for r in rounds
+              if isinstance(r.get("loss"), (int, float))]
+    out["loss_first"] = losses[0] if losses else None
+    out["loss_final"] = losses[-1] if losses else None
+    q = [r["quarantined"] for r in rounds
+         if isinstance(r.get("quarantined"), int)]
+    out["quarantined_last"] = q[-1] if q else None
+    rs = out["round_seconds_total"]
+    if rounds and rs:
+        out["rounds_per_sec"] = len(rounds) / rs
+        if out["images_total"]:
+            out["images_per_sec"] = out["images_total"] / rs
+        if out["comm_seconds_total"] is not None:
+            out["comm_overhead_frac"] = out["comm_seconds_total"] / rs
+    if out["bytes_dense_total"]:
+        out["compression_savings_frac"] = (
+            1.0 - (out["bytes_on_wire_total"] or 0)
+            / out["bytes_dense_total"])
+    # buffered-async telemetry (schema v4)
+    async_rounds = [r for r in rounds if r.get("async_mode")]
+    out["async_rounds"] = len(async_rounds)
+    depths = [r["buffer_depth"] for r in rounds
+              if isinstance(r.get("buffer_depth"), int)]
+    out["buffer_depth_peak"] = max(depths) if depths else None
+    out["admission_rejected_total"] = tot("admission_rejected")
+    hists = [r["staleness_hist"] for r in rounds
+             if isinstance(r.get("staleness_hist"), list)]
+    if hists:
+        width = max(len(h) for h in hists)
+        total = [0] * width
+        for h in hists:
+            for i, v in enumerate(h):
+                if isinstance(v, (int, float)):
+                    total[i] += int(v)
+        out["staleness_hist_total"] = total
+    else:
+        out["staleness_hist_total"] = None
+    # elastic-federation membership (schema v9; join=/leave= families):
+    # peak/min live members over the run, total transitions, and the
+    # reshape count from the supervisor control records.  All None/0 on
+    # static-roster streams so pre-v9 summaries are unchanged.
+    members = [r["members_active"] for r in rounds
+               if isinstance(r.get("members_active"), int)]
+    out["members_peak"] = max(members) if members else None
+    out["members_min"] = min(members) if members else None
+    out["joined_total"] = tot("joined")
+    out["left_total"] = tot("left")
+    # client-grain dispersion (schema v10, obs/clients.py): max/median
+    # per-client mean update norm, their skew, and the anomaly-ranking
+    # top offender.  All absent-keys-stay-absent on pre-v10 streams
+    # (summarize_clients returns {} with no client records), so v9
+    # summaries are unchanged.
+    from federated_pytorch_test_tpu_torch.obs.clients import summarize_clients
+    out.update(summarize_clients(records))
+    # watchdog alerts (schema v5)
+    alerts = [r for r in records if r.get("event") == "alert"]
+    out["alerts"] = len(alerts)
+    out["alert_rules"] = sorted({a.get("rule", "?") for a in alerts})
+    # control-plane interventions (schema v8)
+    controls = [r for r in records if r.get("event") == "control"]
+    out["controls"] = len(controls)
+    out["control_interventions"] = sorted(
+        {c.get("intervention", "?") for c in controls})
+    out["restarts"] = sum(1 for c in controls
+                          if c.get("intervention") == "restart")
+    out["reshapes"] = sum(1 for c in controls
+                          if c.get("intervention") == "reshape")
+    # soak campaigns (schema v12): restart-segment structure, the
+    # availability gate's two numbers (bench --soak / obs.compare
+    # direction rules), the campaign window rollup, the intervention
+    # timeline, and cohort health drift.  A round index appearing in
+    # two segments means the later segment REPLAYED it after a restart
+    # (work done twice), so rounds lost = replayed indices + one round
+    # of lost progress per restart; availability is the distinct-round
+    # fraction of that total.
+    seg_rounds: List[List[int]] = []
+    for r in records:
+        if r.get("event") == "run_header":
+            seg_rounds.append([])
+        elif (r.get("event") == "round"
+              and isinstance(r.get("round_index"), int)):
+            if not seg_rounds:
+                seg_rounds.append([])
+            seg_rounds[-1].append(r["round_index"])
+    out["segments"] = len(seg_rounds)
+    out["segment_round_ranges"] = [
+        [s[0], s[-1]] if s else None for s in seg_rounds]
+    distinct = len(set(idx))
+    out["rounds_distinct"] = distinct
+    out["rounds_replayed"] = len(idx) - distinct
+    out["rounds_lost"] = out["rounds_replayed"] + out["restarts"]
+    out["availability_pct"] = (
+        round(100.0 * distinct / (distinct + out["rounds_lost"]), 2)
+        if distinct else None)
+    camps = [r for r in records if r.get("event") == "campaign"]
+    out["campaign_records"] = len(camps)
+    out["campaign_virtual_hours"] = None
+    if camps:
+        slope = [r["virtual_seconds"] / r["round_index"] for r in camps
+                 if isinstance(r.get("round_index"), int)
+                 and r["round_index"] > 0
+                 and isinstance(r.get("virtual_seconds"), (int, float))]
+        vs = [r["virtual_seconds"] for r in camps
+              if isinstance(r.get("virtual_seconds"), (int, float))]
+        if slope and idx:
+            # virtual seconds per round is linear in the round index, so
+            # the campaign's span covers one window past the last round
+            out["campaign_virtual_hours"] = round(
+                (max(idx) + 1) * slope[-1] / 3600.0, 2)
+        elif vs:
+            out["campaign_virtual_hours"] = round(max(vs) / 3600.0, 2)
+        out["campaign_phases"] = sorted(
+            {str(r.get("phase")) for r in camps if r.get("phase")})
+        out["campaign_storm_windows"] = sum(
+            1 for r in camps if r.get("storm"))
+        out["campaign_burst_windows"] = sum(
+            1 for r in camps if r.get("burst"))
+        out["campaign_preempts"] = sum(
+            1 for r in camps if r.get("preempt_now"))
+    # serving plane (schema v13; serve/): request/batch totals, the
+    # blended padding-waste fraction (padded slots over dispatched
+    # slots, NOT a mean of per-round fractions — rounds with more
+    # traffic weigh more), latency/QPS telemetry, the hot-swap count
+    # and worst publish gap, and the closed-loop drift signals.  All
+    # absent on serving-off streams so pre-v13 summaries are unchanged.
+    serves = [r for r in records if r.get("event") == "serve"]
+    out["serve_records"] = len(serves)
+    if serves:
+        def stot(key):
+            vals = [r[key] for r in serves
+                    if isinstance(r.get(key), (int, float))
+                    and not isinstance(r.get(key), bool)]
+            return sum(vals) if vals else None
+
+        def svals(key):
+            return [r[key] for r in serves
+                    if isinstance(r.get(key), (int, float))
+                    and not isinstance(r.get(key), bool)]
+
+        out["serve_requests_total"] = stot("requests")
+        out["serve_batches_total"] = stot("batches")
+        padded = stot("padded_slots") or 0
+        req = out["serve_requests_total"] or 0
+        out["serve_padding_waste_frac"] = (
+            round(padded / (req + padded), 6) if req + padded else None)
+        qps = svals("serve_qps")
+        out["serve_qps_mean"] = (
+            round(sum(qps) / len(qps), 3) if qps else None)
+        p50 = svals("serve_p50_ms")
+        out["serve_p50_ms_mean"] = (
+            round(sum(p50) / len(p50), 3) if p50 else None)
+        p99 = svals("serve_p99_ms")
+        out["serve_p99_ms_max"] = round(max(p99), 3) if p99 else None
+        gaps = svals("swap_gap_seconds")
+        out["serve_swap_gap_max"] = (
+            round(max(gaps), 6) if gaps else None)
+        out["serve_swaps"] = sum(1 for r in serves if r.get("swap"))
+        out["serve_forced_refreshes"] = sum(
+            1 for r in serves if r.get("forced_refresh"))
+        vers = [r["weights_version"] for r in serves
+                if isinstance(r.get("weights_version"), int)]
+        out["serve_weights_version_last"] = vers[-1] if vers else None
+        acc = svals("serve_accuracy")
+        out["serve_accuracy_last"] = (
+            round(acc[-1], 6) if acc else None)
+        out["serve_drift_rounds"] = sum(
+            1 for r in serves if r.get("drift_injected"))
+        out["serve_drift_alerts"] = sum(
+            1 for a in alerts if a.get("rule") == "serve_drift")
+    out["intervention_timeline"] = [
+        {"round_index": c.get("round_index"), "source": c.get("source"),
+         "intervention": c.get("intervention"), "param": c.get("param"),
+         "from_value": c.get("from_value"), "to_value": c.get("to_value")}
+        for c in controls]
+    # cohort health drift: mean finite per-client update norm, late half
+    # of the stream vs early half (None without ≥2 client records)
+    cnorms = []
+    for r in records:
+        if r.get("event") != "client":
+            continue
+        v = r.get("update_norm")
+        if isinstance(v, list):
+            fin = [x for x in v if isinstance(x, (int, float))
+                   and x == x and abs(x) != float("inf")]
+            if fin:
+                cnorms.append(sum(fin) / len(fin))
+    out["client_norm_drift_frac"] = None
+    if len(cnorms) >= 2:
+        half = len(cnorms) // 2
+        early = sum(cnorms[:half]) / half
+        late = sum(cnorms[half:]) / (len(cnorms) - half)
+        if early > 0:
+            out["client_norm_drift_frac"] = round(late / early - 1.0, 4)
+    # device-cost ledger (schema v6): compile totals recomputed from the
+    # round records; the memory watermark is the max across the rounds'
+    # instantaneous stats (matches the recorder's summary field)
+    compiles = [r for r in records if r.get("event") == "compile"]
+    out["compile_events"] = len(compiles)
+    out["compile_seconds_total"] = tot("compile_seconds")
+    mem_peaks = []
+    mem_in_use = []
+    for r in rounds:
+        for key, dst in (("mem_peak_bytes_in_use", mem_peaks),
+                         ("mem_bytes_in_use", mem_in_use)):
+            v = r.get(key)
+            if isinstance(v, int) and not isinstance(v, bool):
+                dst.append(v)
+    out["mem_peak_bytes_watermark"] = (
+        max(mem_peaks) if mem_peaks
+        else (max(mem_in_use) if mem_in_use else None))
+    out["mem_final_vs_peak_bytes"] = (
+        out["mem_peak_bytes_watermark"] - mem_in_use[-1]
+        if out["mem_peak_bytes_watermark"] is not None and mem_in_use
+        else None)
+    return out
+
+
+def _fmt_bytes(n) -> str:
+    if n is None:
+        return "-"
+    for unit in ("B", "KiB", "MiB", "GiB"):
+        if abs(n) < 1024 or unit == "GiB":
+            return f"{n:.1f} {unit}" if unit != "B" else f"{n:.0f} B"
+        n /= 1024
+    return f"{n:.1f} GiB"
+
+
+def format_report(s: Dict[str, Any]) -> str:
+    """Human-readable summary table (stable two-column layout)."""
+    lines = [
+        f"run {s.get('run_id') or '?'} · engine={s.get('engine') or '?'}"
+        f" · algo={s.get('algorithm') or '?'}"
+        f" · schema v{s.get('path_schema')} · status={s.get('status')}",
+    ]
+
+    def row(label, value):
+        lines.append(f"  {label:<22}{value}")
+
+    mono = "monotonic" if s.get("monotonic") else "NON-MONOTONIC"
+    row("rounds", f"{s['rounds']}  (indices {s.get('round_index_first')}"
+        f"..{s.get('round_index_last')}, {mono}; "
+        f"{s['headers']} header(s), {s['summaries']} summary(ies))")
+    rs = s.get("round_seconds_total")
+    if rs:
+        per = rs / max(s["rounds"], 1)
+        row("wall clock", f"{rs:.2f} s  ({per:.3f} s/round, "
+            f"{s.get('rounds_per_sec', 0.0):.2f} rounds/s)")
+    if s.get("images_total"):
+        row("throughput", f"{s.get('images_per_sec', 0.0):,.0f} images/s"
+            f"  ({s['images_total']:,} images)")
+    if s.get("comm_seconds_total") is not None and rs:
+        row("comm overhead", f"{100.0 * s.get('comm_overhead_frac', 0.0):.1f} %"
+            f"  ({s['comm_seconds_total']:.2f} s in comm+sync)")
+    if s.get("bytes_on_wire_total") is not None:
+        msg = _fmt_bytes(s["bytes_on_wire_total"])
+        if s.get("bytes_dense_total"):
+            msg += (f"  (dense {_fmt_bytes(s['bytes_dense_total'])}, "
+                    f"saved {100.0 * s.get('compression_savings_frac', 0.0):.1f}%)")
+        row("bytes on wire", msg)
+    faults = {k: s.get(k + "_total") for k in
+              ("guard_trips", "fault_dropped", "fault_straggled",
+               "fault_corrupted")}
+    if any(v for v in faults.values()) or s.get("quarantined_last"):
+        row("guards/faults",
+            f"trips={faults['guard_trips'] or 0:g} "
+            f"drop={faults['fault_dropped'] or 0} "
+            f"straggle={faults['fault_straggled'] or 0} "
+            f"corrupt={faults['fault_corrupted'] or 0} "
+            f"quarantined_last={s.get('quarantined_last') or 0}")
+    if s.get("async_rounds"):
+        msg = (f"{s['async_rounds']} async round(s), "
+               f"peak buffer_depth={s.get('buffer_depth_peak') or 0}, "
+               f"admission_rejected={s.get('admission_rejected_total') or 0}")
+        if s.get("staleness_hist_total"):
+            msg += f", staleness_hist={s['staleness_hist_total']}"
+        row("async", msg)
+    if s.get("bytes_fused_total"):
+        row("bytes fused", _fmt_bytes(s["bytes_fused_total"])
+            + "  (stayed packed across the reduction)")
+    if s.get("overlap_seconds_total"):
+        row("comm overlap", f"{s['overlap_seconds_total']:.2f} s hidden "
+            "behind staging")
+    if s.get("members_peak") is not None:
+        row("membership",
+            f"peak={s['members_peak']} min={s.get('members_min')} "
+            f"joined={s.get('joined_total') or 0} "
+            f"left={s.get('left_total') or 0} "
+            f"reshapes={s.get('reshapes') or 0}")
+    if s.get("client_records"):
+        msg = (f"{s['client_records']} record(s), "
+               f"K={s.get('clients_observed')}, "
+               f"top_offender=c{s.get('top_offender')} "
+               f"(score {s.get('top_offender_score', 0.0):.3f})")
+        if s.get("client_norm_skew") is not None:
+            msg += (f", norm max/median="
+                    f"{s['client_norm_max']:.4g}/"
+                    f"{s['client_norm_median']:.4g} "
+                    f"(skew {s['client_norm_skew']:.2f})")
+        row("client ledger", msg)
+    if s.get("alerts"):
+        row("health alerts",
+            f"{s['alerts']} alert(s): {', '.join(s.get('alert_rules') or [])}")
+    if s.get("controls"):
+        row("control plane",
+            f"{s['controls']} record(s), {s.get('restarts', 0)} restart(s)"
+            f": {', '.join(s.get('control_interventions') or [])}")
+    if s.get("segments", 0) > 1 or s.get("rounds_lost"):
+        ranges = ", ".join(
+            "-" if rr is None else f"{rr[0]}..{rr[1]}"
+            for rr in s.get("segment_round_ranges") or [])
+        row("segments", f"{s.get('segments')} restart segment(s): "
+            f"rounds {ranges}")
+        if s.get("availability_pct") is not None:
+            row("availability",
+                f"{s['availability_pct']:.2f} %  "
+                f"({s.get('rounds_distinct')} distinct round(s); "
+                f"{s.get('rounds_lost')} lost = "
+                f"{s.get('rounds_replayed')} replayed + "
+                f"{s.get('restarts', 0)} restart(s))")
+    if s.get("campaign_records"):
+        msg = f"{s['campaign_records']} window record(s)"
+        if s.get("campaign_virtual_hours") is not None:
+            msg += f", {s['campaign_virtual_hours']:.1f} virtual h"
+        msg += (f", storms={s.get('campaign_storm_windows', 0)} "
+                f"bursts={s.get('campaign_burst_windows', 0)} "
+                f"preempts={s.get('campaign_preempts', 0)}; phases: "
+                + ", ".join(s.get("campaign_phases") or []))
+        row("campaign", msg)
+    if s.get("serve_records"):
+        msg = (f"{s['serve_records']} tick(s), "
+               f"{s.get('serve_requests_total') or 0:,} request(s)")
+        if s.get("serve_qps_mean") is not None:
+            msg += f", {s['serve_qps_mean']:,.1f} qps"
+        if s.get("serve_p50_ms_mean") is not None:
+            msg += (f", p50 {s['serve_p50_ms_mean']:.2f} ms / "
+                    f"p99 {s.get('serve_p99_ms_max', 0.0):.2f} ms")
+        row("serving", msg)
+        msg = (f"{s.get('serve_swaps', 0)} swap(s) to "
+               f"v{s.get('serve_weights_version_last')}")
+        if s.get("serve_swap_gap_max") is not None:
+            msg += f", worst gap {1e3 * s['serve_swap_gap_max']:.1f} ms"
+        if s.get("serve_forced_refreshes"):
+            msg += (f", {s['serve_forced_refreshes']} forced "
+                    "refresh(es)")
+        if s.get("serve_padding_waste_frac") is not None:
+            msg += (f", padding waste "
+                    f"{100.0 * s['serve_padding_waste_frac']:.1f} %")
+        row("serve swaps", msg)
+        if (s.get("serve_drift_rounds") or s.get("serve_drift_alerts")
+                or s.get("serve_accuracy_last") is not None):
+            msg = ""
+            if s.get("serve_accuracy_last") is not None:
+                msg += f"accuracy_last={s['serve_accuracy_last']:.4f} "
+            msg += (f"drift_rounds={s.get('serve_drift_rounds', 0)} "
+                    f"drift_alerts={s.get('serve_drift_alerts', 0)}")
+            row("serve drift", msg)
+    if s.get("client_norm_drift_frac") is not None:
+        row("cohort drift",
+            f"{100.0 * s['client_norm_drift_frac']:+.1f} % mean "
+            "update-norm, late vs early half")
+    timeline = s.get("intervention_timeline") or []
+    if timeline:
+        row("interventions", f"{len(timeline)} event(s):")
+        for ev in timeline[:12]:
+            msg = (f"round {ev.get('round_index')}: "
+                   f"{ev.get('source')}/{ev.get('intervention')}")
+            if ev.get("param") is not None:
+                msg += (f" {ev['param']}: {ev.get('from_value')!r}"
+                        f" -> {ev.get('to_value')!r}")
+            lines.append(f"    {msg}")
+        if len(timeline) > 12:
+            lines.append(f"    ... {len(timeline) - 12} more")
+    if s.get("compile_events") or s.get("compile_seconds_total"):
+        msg = f"{s.get('compile_events', 0)} event(s)"
+        if s.get("compile_seconds_total") is not None:
+            msg += f", {s['compile_seconds_total']:.2f} s"
+        msg += "  (details: python -m federated_pytorch_test_tpu_torch.obs.profile)"
+        row("compile", msg)
+    if s.get("mem_peak_bytes_watermark") is not None:
+        msg = "watermark " + _fmt_bytes(s["mem_peak_bytes_watermark"])
+        if s.get("mem_final_vs_peak_bytes") is not None:
+            msg += (", final vs peak "
+                    + _fmt_bytes(s["mem_final_vs_peak_bytes"]))
+        row("device memory", msg)
+    if s.get("loss_first") is not None:
+        row("loss", f"first={s['loss_first']:.6g} "
+            f"final={s['loss_final']:.6g}")
+    return "\n".join(lines)
+
+
+def selftest(device="cuda") -> str:
+    """Recorder → JSONL → parse → validate → summarise round-trip, plus
+    the trace-exporter, watchdog, compare, cost-profile, control-replay,
+    client-ledger, campaign and serving selftests (the tests run this on
+    the CPU, ``chip_smoke.py`` on the card, so the whole live-health +
+    control-plane layer is exercised without a prior training run).
+    ``device`` holds the tensors of the serving selftests."""
+    import os
+    import tempfile
+
+    from federated_pytorch_test_tpu_torch.obs.recorder import make_recorder
+
+    with tempfile.TemporaryDirectory() as d:
+        rec = make_recorder("jsonl", d, run_name="selftest",
+                            engine="selftest", algorithm="fedavg")
+        rec.open(config={"K": 2, "Nadmm": 3}, mesh_shape={"clients": 1})
+        for i in range(3):
+            rec.round({"round_index": i, "nloop": 0, "block": 0,
+                       "nadmm": i, "N": 100, "loss": 2.0 - 0.5 * i,
+                       "rho": 1.0, "round_seconds": 0.5,
+                       "stage_seconds": 0.01, "comm_seconds": 0.1,
+                       "bytes_on_wire": 100, "bytes_dense": 400,
+                       "bytes_fused": 50, "overlap_seconds": 0.02,
+                       "images": 256, "guard_trips": 1 if i == 2 else 0,
+                       "quarantined": 0,
+                       "async_mode": True, "max_staleness": 2,
+                       "async_arrived": 2, "admission_rejected": i,
+                       "buffer_depth": i, "staleness_hist": [2, 0, 0],
+                       "members_active": 2 - (i == 1), "joined": 0,
+                       "left": 1 if i == 1 else 0})
+            # serving tick (schema v13): the pure subset + advisory
+            # telemetry, validated by the same read_records pass below
+            rec.serve_event({"round_index": i, "weights_version":
+                             1 + i // 2, "requests": 10 + i, "batches": 2,
+                             "padded_slots": 3, "padding_waste_frac": 0.2,
+                             "serve_p50_ms": 1.0, "serve_p99_ms": 2.0 + i,
+                             "serve_qps": 100.0, "serve_accuracy": 0.9,
+                             "drift_score": 0.0, "drift_injected": False,
+                             "swap": i % 2 == 0,
+                             **({"swap_gap_seconds": 0.01}
+                                if i % 2 == 0 else {})})
+        rec.close()
+        path = os.path.join(d, "selftest.jsonl")
+        records = read_records(path)
+        assert len(records) == 8, f"expected 8 records, got {len(records)}"
+        s = summarize(records)
+        assert s["rounds"] == 3 and s["monotonic"], s
+        assert s["bytes_on_wire_total"] == 300, s
+        assert s["bytes_dense_total"] == 1200, s
+        assert abs(s["compression_savings_frac"] - 0.75) < 1e-9, s
+        assert s["guard_trips_total"] == 1, s
+        assert s["loss_final"] == 1.0, s
+        assert s["status"] == "completed", s
+        assert s["async_rounds"] == 3, s
+        assert s["buffer_depth_peak"] == 2, s
+        assert s["admission_rejected_total"] == 3, s
+        assert s["staleness_hist_total"] == [6, 0, 0], s
+        assert s["bytes_fused_total"] == 150, s
+        assert abs(s["overlap_seconds_total"] - 0.06) < 1e-9, s
+        assert s["members_peak"] == 2 and s["members_min"] == 1, s
+        assert s["joined_total"] == 0 and s["left_total"] == 1, s
+        assert s["reshapes"] == 0, s
+        assert s["serve_records"] == 3, s
+        assert s["serve_requests_total"] == 33, s
+        assert s["serve_swaps"] == 2, s
+        assert s["serve_weights_version_last"] == 2, s
+        assert s["serve_p99_ms_max"] == 4.0, s
+        assert abs(s["serve_padding_waste_frac"] - 9 / 42) < 1e-6, s
+        assert s["serve_swap_gap_max"] == 0.01, s
+        table = format_report(s)
+        assert "async" in table, table
+        assert "bytes fused" in table, table
+        assert "comm overlap" in table, table
+        assert "membership" in table, table
+        assert "serving" in table and "serve swaps" in table, table
+    assert record_ips({"images": 256, "round_seconds": 0}) == float("inf")
+    assert record_ips({"images": 0, "round_seconds": 0}) == 0.0
+
+    # soak aggregation: a synthetic two-segment campaign stream — the
+    # restart replays rounds 2..3, so 6 distinct rounds cost 8 round
+    # records + 1 restart -> availability 6/(6+3)
+    from federated_pytorch_test_tpu_torch.campaign.schedule import (
+        CampaignSchedule)
+    sched = CampaignSchedule.parse(
+        "hours=3,round_minutes=30,diurnal=0.5,drop=0.2,seed=9")
+
+    def rr(i):
+        return {"event": "round", "round_index": i, "round_seconds": 1.0,
+                "images": 64, "loss": 1.0}
+
+    camp = [dict({"event": "campaign", "schema": 12, "run_id": "x"},
+                 **fields)
+            for _, fields in sched.expected_emissions(range(6))]
+    soak = ([{"event": "run_header", "run_id": "x", "schema": 12}]
+            + [rr(i) for i in range(4)] + camp[:2]
+            + [{"event": "control", "run_id": "x", "schema": 12,
+                "round_index": 3, "source": "supervisor", "mode": "act",
+                "intervention": "restart", "param": "run", "attempt": 1,
+                "backoff_seconds": 1.0, "reason": "selftest"}]
+            + [{"event": "run_header", "run_id": "x", "schema": 12}]
+            + [rr(i) for i in range(2, 6)] + camp[2:]
+            + [{"event": "client", "run_id": "x", "schema": 12,
+                "round_index": i, "clients": 2,
+                "update_norm": [1.0 + 0.5 * (i >= 3)] * 2}
+               for i in range(6)])
+    ss = summarize(soak)
+    assert ss["segments"] == 2, ss
+    assert ss["segment_round_ranges"] == [[0, 3], [2, 5]], ss
+    assert ss["rounds_distinct"] == 6, ss
+    assert ss["rounds_replayed"] == 2 and ss["restarts"] == 1, ss
+    assert ss["rounds_lost"] == 3, ss
+    assert ss["availability_pct"] == round(100.0 * 6 / 9, 2), ss
+    assert ss["campaign_records"] == len(camp) == 3, ss
+    assert ss["campaign_virtual_hours"] == 3.0, ss
+    assert len(ss["intervention_timeline"]) == 1, ss
+    assert ss["client_norm_drift_frac"] == 0.5, ss
+    soak_table = format_report(ss)
+    assert "availability" in soak_table, soak_table
+    assert "2 restart segment(s)" in soak_table, soak_table
+    assert "campaign" in soak_table, soak_table
+    assert "supervisor/restart" in soak_table, soak_table
+
+    # serve drift aggregation: injected rounds and the watchdog's
+    # serve_drift alerts both surface in the summary/table
+    drift_stream = (
+        [{"event": "serve", "schema": 13, "run_id": "x",
+          "round_index": i, "weights_version": 1, "requests": 8,
+          "serve_accuracy": 1.0 - 0.5 * (i >= 2),
+          "drift_injected": i >= 2} for i in range(4)]
+        + [{"event": "alert", "schema": 13, "run_id": "x",
+            "round_index": 3, "rule": "serve_drift", "severity": "warn",
+            "message": "selftest", "action": "warn"}])
+    ds = summarize(drift_stream)
+    assert ds["serve_drift_rounds"] == 2, ds
+    assert ds["serve_drift_alerts"] == 1, ds
+    assert ds["serve_accuracy_last"] == 0.5, ds
+    assert "serve drift" in format_report(ds), format_report(ds)
+
+    from federated_pytorch_test_tpu_torch.campaign import clock as campaign_clock
+    from federated_pytorch_test_tpu_torch.campaign import (
+        harness as campaign_harness)
+    from federated_pytorch_test_tpu_torch.campaign import (
+        schedule as campaign_schedule)
+    from federated_pytorch_test_tpu_torch.control import replay as control_replay
+    from federated_pytorch_test_tpu_torch.obs import (
+        clients, compare, health, profile, trace,
+    )
+    from federated_pytorch_test_tpu_torch.serve import (
+        batcher as serve_batcher,
+        evalstream as serve_evalstream,
+        infer as serve_infer,
+        swap as serve_swap,
+    )
+
+    trace.selftest()
+    health.selftest()
+    compare.selftest()
+    profile.selftest()
+    control_replay.selftest()
+    clients.selftest()
+    campaign_schedule.selftest()
+    campaign_clock.selftest()
+    campaign_harness.selftest()
+    serve_batcher.selftest()
+    serve_swap.selftest(device)
+    serve_infer.selftest(device)
+    serve_evalstream.selftest()
+
+    return (table
+            + "\nobs trace selftest: OK (Chrome trace valid)"
+            + "\nobs health selftest: OK (NaN streak alerted)"
+            + "\nobs compare selftest: OK (regression gate works)"
+            + "\nobs profile selftest: OK (cost attribution reconstructs)"
+            + "\ncontrol replay selftest: OK (decisions reproduce)"
+            + "\nobs clients selftest: OK (anomaly ranking replayable)"
+            + "\ncampaign selftests: OK (schedule pure; clock scales "
+            "wall time only; harness maps knobs)"
+            + f"\nserve selftests: OK (batcher deterministic; swap "
+            f"never torn; predictor pads to buckets on {device}; drift "
+            "scored)"
+            + "\nobs report selftest: OK")
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    p = argparse.ArgumentParser(
+        prog="python -m federated_pytorch_test_tpu_torch.obs.report",
+        description="Summarise an obs run JSONL (see README "
+                    "'Observability')")
+    p.add_argument("path", nargs="?", help="run JSONL file")
+    p.add_argument("--json", action="store_true",
+                   help="print the summary as one JSON object")
+    p.add_argument("--no-validate", action="store_true",
+                   help="skip schema validation while parsing")
+    p.add_argument("--selftest", action="store_true",
+                   help="run the built-in round-trip selftest and exit")
+    p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                   help="device of the selftests' tensors (default cuda)")
+    args = p.parse_args(argv)
+    if args.selftest:
+        print(selftest(args.device))
+        return 0
+    if not args.path:
+        p.error("a run JSONL path is required (or --selftest)")
+    try:
+        records = read_records(args.path, validate=not args.no_validate)
+    except (OSError, SchemaError) as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 1
+    if not records:
+        print(f"error: {args.path} holds no records", file=sys.stderr)
+        return 1
+    s = summarize(records)
+    print(json.dumps(s) if args.json else format_report(s))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

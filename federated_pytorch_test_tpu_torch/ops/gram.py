@@ -45,13 +45,19 @@ MAX_BLOCKS = 132
 
 def gram_plain(a: torch.Tensor) -> torch.Tensor:
     """``A·Aᵀ`` as the Pallas kernel computes it: the sum over 512-column
-    slabs of ``slab @ slabᵀ`` in float32, in slab order."""
+    slabs of ``slab @ slabᵀ`` in float32, in slab order.
+
+    Symmetric by construction, as the kernel is: G_ij for i <= j is the
+    slab-order sum of the slabs' (i, j) entries, and G_ji is a copy of it.
+    A BLAS ``s @ sᵀ`` alone does not promise its (i, j) and (j, i) entries
+    equal bit for bit, and krum's distances d_ij and d_ji would then
+    differ."""
     K, n = a.shape
     g = torch.zeros((K, K), dtype=torch.float32, device=a.device)
     for c in range(0, n, SLAB):
         s = a[:, c: c + SLAB]
         g = g + s @ s.t()
-    return g
+    return torch.triu(g) + torch.triu(g, 1).t()
 
 
 def _pairs(K: int) -> int:

@@ -1,26 +1,41 @@
-"""Stochastic L-BFGS on a flat parameter vector, batch mode with the
-backtracking line search.
+"""Stochastic L-BFGS on a flat parameter vector: batch mode with the
+backtracking line search, full batch with the cubic strong-Wolfe search,
+or a fixed step.
 
-Port of ``federated_pytorch_test_tpu/optim/lbfgs.py`` (``LBFGSNew`` with
-``batch_mode=True, line_search_fn=True`` — the configuration the CPC
-trainer uses; the full-batch cubic strong-Wolfe search is not ported yet).
-The JAX ``lax.while_loop`` / ``lax.cond`` become Python control flow that
-reads scalars with ``.item()``; the constants and quirks are the JAX
-package's (reference lbfgsnew.py):
+Port of ``federated_pytorch_test_tpu/optim/lbfgs.py`` (``LBFGSNew``, with
+its fields and defaults).  The JAX ``lax.while_loop`` / ``lax.cond`` become
+Python control flow that reads scalars with ``.item()``; the scalars stay
+0-d tensors of the parameters' dtype, so every comparison the searches
+make is on the values the JAX package compares.  The constants and quirks
+are the JAX package's (reference lbfgsnew.py):
 
-  * trust region ``y += 1e-6 * s``;
-  * batch change detected at the first inner iteration of every step after
-    the first, feeding the online inter-batch gradient mean/variance and
-    the max step ``alphabar = 1/(1 + Var/((n-1)*|g|))``, with ``|g|`` the
-    gradient norm at step entry;
+  * batch mode: trust region ``y += 1e-6 * s``; batch change detected at
+    the first inner iteration of every step after the first, feeding the
+    online inter-batch gradient mean/variance and the max step
+    ``alphabar = 1/(1 + Var/((n-1)*|g|))``, with ``|g|`` the gradient norm
+    at step entry;
   * curvature pairs stored only when ``ys > 1e-10*|s|^2`` and the batch did
     not change, in a circular buffer of ``history_size`` slots;
-  * backtracking with Armijo c1=1e-4 and at most 35 halvings shared by the
-    positive phase and the negative-step probe;
-  * ``step`` returns the loss of its first closure call.
+  * ``batch_mode=True, line_search_fn=True``: backtracking with Armijo
+    c1=1e-4 and at most 35 halvings shared by the positive phase and the
+    negative-step probe;
+  * ``batch_mode=False, line_search_fn=True``: the cubic strong-Wolfe
+    search (Fletcher): bracketing with sigma=0.1, rho=0.01, t1=9, t2=0.1,
+    t3=0.5, ``alpha1 = 10*lr``, ``tol = min(0.01*phi_0, 1e-6)``, at most 3
+    bracketing rounds whose Armijo test omits rho and which do not advance
+    ``alphai1`` when they interpolate, step 1.0 on a degenerate phi'(0)
+    (``|phi'(0)| < 1e-12``) or a non-finite mu; a zoom of at most 4
+    rounds; the exact ``g.d`` in place of the reference's central
+    differences; a NaN step falls back to ``lr``;
+  * ``line_search_fn=False``: the fixed step ``min(1, 1/sum|g|)*lr`` on the
+    first iteration ever, else ``lr``;
+  * ``step`` returns the loss of its first closure call; ``func_evals``
+    counts that call, the re-evaluations and the line-search trials.
 
-The closure is ``loss_fn(x) -> scalar tensor``, differentiable in ``x``.
-Line-search trials evaluate it under ``torch.no_grad()`` (loss only).
+The trainers pass ``batch_mode=True, line_search_fn=True`` (the JAX
+trainers' configuration); the defaults are the JAX optimizer's.  The
+closure is ``loss_fn(x) -> scalar tensor``, differentiable in ``x``.
+Loss-only trials evaluate it under ``torch.no_grad()``.
 """
 
 from __future__ import annotations
@@ -75,11 +90,12 @@ def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 @dataclasses.dataclass(frozen=True)
 class LBFGSNew:
-    """Stochastic L-BFGS, batch mode, backtracking line search.
+    """Stochastic L-BFGS on a flat parameter vector.
 
     Usage::
 
-        opt = LBFGSNew(history_size=7, max_iter=2)
+        opt = LBFGSNew(history_size=7, max_iter=2, batch_mode=True,
+                       line_search_fn=True)
         state = opt.init(x0)
         x, state, loss = opt.step(loss_fn, x, state)
     """
@@ -90,6 +106,8 @@ class LBFGSNew:
     tolerance_grad: float = 1e-5
     tolerance_change: float = 1e-9
     history_size: int = 7
+    line_search_fn: bool = False
+    batch_mode: bool = False
 
     def _max_eval(self) -> int:
         return self.max_eval if self.max_eval is not None else self.max_iter * 5 // 4
@@ -164,6 +182,134 @@ class LBFGSNew:
         return alphak, ci
 
     # ------------------------------------------------------------------
+    # full-batch cubic strong-Wolfe line search.  phi(a) = loss(x + a*d),
+    # phi'(a) = grad(x + a*d) . d, exact from one value-and-grad call.
+    # ------------------------------------------------------------------
+    def _cubic_interpolate(self, vg_phi, phi, a, b) -> Tuple[torch.Tensor, int]:
+        """Cubic minimizer in [a,b] (or [b,a]); returns (alpha, n_evals).
+
+        The reference's quirks: a predicted minimizer ``z0`` inside the
+        interval is scored at ``a + z0*(b-a)`` (z0 re-read as a fraction);
+        one outside scores ``f0+f1`` so the better endpoint wins; a zero
+        denominator gives ``(a+b)/2``."""
+        f0, f0d = vg_phi(a)
+        f1, f1d = vg_phi(b)
+        ab = b - a
+        aa = 3.0 * (f0 - f1) / torch.where(ab == 0, torch.ones_like(ab),
+                                           ab) + f1d - f0d
+        disc = aa * aa - f0d * f1d
+        if not bool(disc > 0.0):
+            return (a if bool(f0 < f1) else b), 2
+        cc = torch.sqrt(disc)
+        denom = f1d - f0d + 2.0 * cc
+        z0 = b - (f1d + cc - aa) * ab / torch.where(
+            denom == 0.0, torch.ones_like(denom), denom)
+        hi, lo = torch.maximum(a, b), torch.minimum(a, b)
+        if bool((z0 > hi) | (z0 < lo)):
+            fz0, ne = f0 + f1, 0
+        else:
+            fz0, ne = phi(a + z0 * ab), 1
+        if bool(denom == 0.0):
+            res = 0.5 * (a + b)
+        elif bool((f0 < f1) & (f0 < fz0)):
+            res = a
+        elif bool(f1 < fz0):
+            res = b
+        else:
+            res = z0
+        return res, 2 + ne
+
+    def _zoom(self, vg_phi, phi, a, b, phi_0, gphi_0, step
+              ) -> Tuple[torch.Tensor, int]:
+        """Fletcher zoom on the bracket [a,b]; returns (alphak, n_evals).
+
+        At most 4 rounds; each interpolates in
+        [aj+t2*(bj-aj), bj-t3*(bj-aj)], shrinks the bracket on an
+        Armijo/monotonicity failure, and otherwise tests the roundoff guard
+        ``(aj-alphaj)*phi'_j <= step`` and the strong-Wolfe curvature bound.
+        If no step was accepted the last alphaj is returned."""
+        sigma, rho = 0.1, 0.01
+        t2, t3 = 0.1, 0.5
+        aj, bj, alphak, found, ne = a, b, a, False, 0
+        for _ in range(4):
+            if found:
+                break
+            p01 = aj + t2 * (bj - aj)
+            p02 = bj - t3 * (bj - aj)
+            alphaj, ne_i = self._cubic_interpolate(vg_phi, phi, p01, p02)
+            phi_j = phi(alphaj)
+            phi_aj = phi(aj)
+            if bool((phi_j > phi_0 + rho * alphaj * gphi_0)
+                    | (phi_j >= phi_aj)):
+                bj, ne_g = alphaj, 0
+            else:
+                _, gphi_j = vg_phi(alphaj)
+                found = bool(((aj - alphaj) * gphi_j <= step)
+                             | (torch.abs(gphi_j) <= -sigma * gphi_0))
+                if bool(gphi_j * (bj - aj) >= 0.0):
+                    bj = aj
+                aj, ne_g = alphaj, 1
+            alphak = alphaj
+            ne += ne_i + 2 + ne_g
+        return alphak, ne
+
+    def _cubic_search(self, loss_fn: LossFn, x, d, phi_0, gphi_0
+                      ) -> Tuple[torch.Tensor, int]:
+        """Strong-Wolfe bracketing phase; returns (alphak, n_evals)."""
+        c = lambda v: torch.tensor(v, dtype=x.dtype, device=x.device)
+        lr = c(self.lr)
+        alpha1 = 10.0 * lr
+        sigma, rho, t1 = 0.1, 0.01, 9.0
+        step = c(1e-6)                  # the zoom's roundoff tolerance
+
+        def vg_phi(alpha):
+            v, gg = value_and_grad(loss_fn, x + alpha * d)
+            return v, _dot(gg, d)
+
+        def phi(alpha):
+            return _value(loss_fn, x + alpha * d)
+
+        tol = torch.minimum(phi_0 * 0.01, c(1e-6))
+        mu = (tol - phi_0) / (rho * gphi_0)
+        if bool((torch.abs(gphi_0) < 1e-12) | ~torch.isfinite(mu)):
+            return c(1.0), 0
+
+        alphai, alphai1, phi_ai1, alphak = alpha1, c(0.0), phi_0, lr
+        ne = 0
+        for ci in range(1, 4):
+            phi_ai = phi(alphai)
+            if bool(phi_ai < tol):
+                alphak, ne_i, done = alphai, 0, True
+            elif bool((phi_ai > phi_0 + alphai * gphi_0)
+                      | ((ci > 1) & (phi_ai >= phi_ai1))):  # rho-less
+                alphak, ne_i = self._zoom(vg_phi, phi, alphai1, alphai,
+                                          phi_0, gphi_0, step)
+                done = True
+            else:
+                _, gphi_i = vg_phi(alphai)
+                if bool(torch.abs(gphi_i) <= -sigma * gphi_0):
+                    alphak, ne_i, done = alphai, 1, True
+                elif bool(gphi_i >= 0.0):
+                    alphak, nz = self._zoom(vg_phi, phi, alphai, alphai1,
+                                            phi_0, gphi_0, step)
+                    ne_i, done = nz + 1, True
+                else:
+                    if bool(mu <= 2.0 * alphai - alphai1):
+                        alphai, alphai1, nei = mu, alphai, 0
+                    else:
+                        p01 = 2.0 * alphai - alphai1
+                        p02 = torch.minimum(
+                            mu, alphai + t1 * (alphai - alphai1))
+                        # alphai1 intentionally NOT advanced
+                        alphai, nei = self._cubic_interpolate(
+                            vg_phi, phi, p01, p02)
+                    phi_ai1, ne_i, done = phi_ai, nei + 1, False
+            ne += 1 + ne_i
+            if done:
+                break
+        return alphak, ne
+
+    # ------------------------------------------------------------------
     def step(self, loss_fn: LossFn, x: torch.Tensor, state: LBFGSState
              ) -> Tuple[torch.Tensor, LBFGSState, torch.Tensor]:
         """One optimization step; returns (x, state, loss of the first
@@ -197,10 +343,12 @@ class LBFGSNew:
                 alphabar = st.alphabar
             else:
                 s = st.d * st.t
-                y = g - st.prev_grad + lm0 * s          # trust region
+                y = g - st.prev_grad
+                if self.batch_mode:
+                    y = y + lm0 * s                     # trust region
                 ys = _dot(y, s)
                 sn2 = _dot(s, s)
-                batch_changed = n_iter == 1             # and total > 1
+                batch_changed = self.batch_mode and n_iter == 1
                 if batch_changed:
                     g_old = g - st.running_avg
                     avg = st.running_avg + g_old / total
@@ -219,11 +367,21 @@ class LBFGSNew:
                 d = self._two_loop(g, hy, hs, hl, hh, H_diag)
 
             prev_grad, prev_loss = g, loss
-            gtd = _dot(g, d)
-            # the line search sets the step; a NaN step falls back to lr
-            t, n_ls = self._backtrack(loss_fn, x, d, g, alphabar, loss)
-            if bool(torch.isnan(t)):
+            if first:
+                t = torch.minimum(torch.ones_like(abs_sum), 1.0 / abs_sum) * lr
+            else:
                 t = lr
+            gtd = _dot(g, d)
+            n_ls = 0
+            if self.line_search_fn:
+                # the line search sets the step; a NaN step falls back to lr
+                if self.batch_mode:
+                    t, n_ls = self._backtrack(loss_fn, x, d, g, alphabar,
+                                              loss)
+                else:
+                    t, n_ls = self._cubic_search(loss_fn, x, d, loss, gtd)
+                if bool(torch.isnan(t)):
+                    t = lr
             x = x + t * d
 
             re = 0

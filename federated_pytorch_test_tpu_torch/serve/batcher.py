@@ -325,3 +325,83 @@ class MicroBatcher:
             "serve_qps": float(n / elapsed),
         }
         return outputs, telemetry
+
+
+def selftest() -> str:
+    """Purity + plan-shape checks (mirrors campaign.schedule.selftest)."""
+    sched = ServeSchedule.parse(
+        "qps=16,round_minutes=0.5,diurnal=0.6,buckets=4+16+64,"
+        "swap_every=2,drift_at=5,seed=7")
+    assert sched is not None
+    assert ServeSchedule.parse("none") is None
+    assert ServeSchedule.parse("") is None
+    assert ServeSchedule.parse(None) is None
+    # round-trip through the canonical spec string
+    assert ServeSchedule.parse(sched.spec_string()) == sched
+    # purity: same coordinates -> same fields, bitwise
+    for r in (0, 1, 5, 17, 480):
+        a, b = sched.record_fields(r), sched.record_fields(r)
+        assert a == b, (r, a, b)
+    # swap sequence is pure in the round index
+    assert [sched.weights_version(r) for r in range(6)] == [1, 1, 2, 2, 3, 3]
+    assert [sched.swap(r) for r in range(4)] == [True, False, True, False]
+    # drift switches on at drift_at and stays on
+    assert not sched.drift_injected(4)
+    assert sched.drift_injected(5) and sched.drift_injected(99)
+    # batch plan: greedy max-bucket chunks + right-sized remainder
+    assert sched.batch_plan(130) == [(64, 64), (64, 64), (4, 2)]
+    assert sched.batch_plan(64) == [(64, 64)]
+    assert sched.batch_plan(5) == [(16, 5)]
+    assert sched.batch_plan(0) == []
+    assert sched.padded_slots(130) == 2
+    # diurnal trough at virtual hour 0
+    flat = ServeSchedule.parse("qps=16,diurnal=0")
+    assert flat is not None and flat.arrival(0) == 1.0
+    assert sched.arrival(0) == round(1.0 - 0.6, 6)
+    # requests always >= 1 and jitter stays within +/-10%
+    for r in range(10):
+        n = sched.requests_for(r)
+        base = sched.qps * sched.round_minutes * 60.0 * sched.arrival(r)
+        assert 1 <= n and 0.9 * base - 1 <= n <= 1.1 * base + 1, (r, n)
+    # micro-batcher round-trip: identity dispatch returns every request
+    # in submit order and pads with row 0
+    calls: List[int] = []
+
+    def dispatch(batch: np.ndarray) -> np.ndarray:
+        calls.append(batch.shape[0])
+        return batch * 2
+
+    mb = MicroBatcher(sched, dispatch, max_queue=256)
+    reqs = [np.full((3,), i, np.float32) for i in range(70)]
+    for x in reqs:
+        mb.submit(x)
+    outs, tel = mb.drain()
+    assert calls == [64, 16]
+    assert len(outs) == 70 and len(mb) == 0
+    assert all(np.array_equal(o, x * 2) for o, x in zip(outs, reqs))
+    assert tel["requests"] == 70.0 and tel["batches"] == 2.0
+    assert tel["padded_slots"] == 10.0
+    assert tel["serve_p99_ms"] >= tel["serve_p50_ms"] >= 0.0
+    # bounded queue refuses request max_queue + 1
+    tiny = MicroBatcher(sched, dispatch, max_queue=2)
+    tiny.submit(reqs[0]); tiny.submit(reqs[1])
+    try:
+        tiny.submit(reqs[2])
+    except OverflowError:
+        pass
+    else:
+        raise AssertionError("queue bound not enforced")
+    # bad specs fail loudly
+    for bad in ("qps=0", "diurnal=2", "buckets=8+4", "swap_every=0",
+                "nonsense", "drift_at=-2"):
+        try:
+            ServeSchedule.parse(bad)
+        except ValueError:
+            pass
+        else:
+            raise AssertionError(f"spec {bad!r} should have raised")
+    return "serve.batcher selftest: OK"
+
+
+if __name__ == "__main__":
+    print(selftest())

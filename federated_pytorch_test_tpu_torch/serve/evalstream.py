@@ -85,3 +85,35 @@ class EvalStream:
             "drift_score": drift,
             "drift_injected": self.schedule.drift_injected(round_index),
         }
+
+
+def selftest() -> str:
+    sched = ServeSchedule.parse("qps=8,drift_at=6,seed=3")
+    assert sched is not None
+    es = EvalStream(sched, window=4)
+    labels = np.arange(10, dtype=np.int64) % 10
+    # before drift_at the stream labels are the clean labels
+    assert np.array_equal(es.drift_labels(labels, 5, 10), labels)
+    # after: a seeded non-zero shift — zero overlap with the clean labels
+    drifted = es.drift_labels(labels, 6, 10)
+    assert not np.any(drifted == labels)
+    assert np.array_equal(drifted, es.drift_labels(labels, 6, 10))
+    # perfect predictions: accuracy 1.0 until drift, then collapse
+    eye = np.eye(10, dtype=np.float32)
+    logits = eye[labels]
+    for r in range(6):
+        out = es.score(r, logits, labels)
+        assert out["serve_accuracy"] == 1.0 and out["drift_score"] == 0.0
+        assert out["drift_injected"] is False
+    out = es.score(6, logits, labels)
+    assert out["drift_injected"] is True
+    assert out["serve_accuracy"] == 0.0 and out["drift_score"] == 1.0
+    # warmup: no drift signal before `window` samples even on collapse
+    cold = EvalStream(sched, window=4)
+    assert cold.observe(0, 1.0)["drift_score"] == 0.0
+    assert cold.observe(1, 0.0)["drift_score"] == 0.0
+    return "serve.evalstream selftest: OK"
+
+
+if __name__ == "__main__":
+    print(selftest())

@@ -134,3 +134,63 @@ class BatchedPredictor:
             host = out.cpu().numpy()
         self.dispatches += 1
         return host[:n]
+
+
+def selftest(device="cuda") -> str:
+    """Bucketing and padding, and every head through the predictor on
+    toy forwards whose tensors lie on ``device``."""
+    dev = torch.device(device)
+    buckets = (4, 16, 64)
+    assert bucket_for(3, buckets) == 4
+    assert bucket_for(4, buckets) == 4
+    assert bucket_for(5, buckets) == 16
+    assert bucket_for(999, buckets) == 64
+    x = np.arange(6, dtype=np.float32).reshape(3, 2)
+    xp = pad_to_bucket(x, 4)
+    assert xp.shape == (4, 2) and np.array_equal(xp[3], x[0])
+    assert pad_to_bucket(x, 3) is x
+
+    def stage(a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(a).to(dev)
+
+    w = {"scale": torch.tensor(2.0, device=dev)}
+
+    def fwd_logits(weights, xb):
+        assert xb.device.type == dev.type
+        return xb * weights["scale"]
+
+    pred = BatchedPredictor(classifier_head(fwd_logits), buckets, stage)
+    out = pred(w, x)
+    assert out.shape == (3, 2) and np.allclose(out, x * 2.0)
+    # bucketed dispatch: 3 rows and 4 rows share one padded shape
+    pred(w, np.ones((4, 2), np.float32))
+    assert pred.shapes_seen == {(4, 2)} and pred.dispatches == 2
+
+    def fwd_vae(weights, xb):
+        return (xb, None, None)  # perfect reconstruction -> score 0
+
+    vae = BatchedPredictor(vae_head(fwd_vae), buckets, stage)
+    scores = vae(w, x)
+    assert scores.shape == (3,) and np.allclose(scores, 0.0)
+
+    def fwd_cpc(weights, xb):
+        return xb.reshape(xb.shape[0], 1, -1)
+
+    cpc = BatchedPredictor(cpc_head(fwd_cpc), buckets, stage)
+    emb = cpc(w, x)
+    assert emb.shape == (3, 2)
+
+    # consensus: mean over the client axis, dtype preserved
+    stacked = {"p": torch.stack([torch.zeros(2, device=dev),
+                                 torch.full((2,), 2.0, device=dev)]),
+               "n": torch.tensor([2, 4], dtype=torch.int32, device=dev)}
+    z = consensus_weights(stacked)
+    assert torch.allclose(z["p"].cpu(), torch.ones(2))
+    assert z["n"].dtype == torch.int32 and z["p"].device.type == dev.type
+    return "serve.infer selftest: OK"
+
+
+if __name__ == "__main__":
+    import sys
+
+    print(selftest(*sys.argv[1:2]))

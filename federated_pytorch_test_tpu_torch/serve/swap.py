@@ -88,3 +88,65 @@ class DoubleBuffer:
     def version(self) -> int:
         active = self._active
         return -1 if active is None else active[0]
+
+
+def selftest(device="cuda") -> str:
+    """Publish-before-acquire, the pure version sequence, no torn read
+    under a writer thread hammering publish, and a blocking publish of
+    tensors computed on ``device``."""
+    buf = DoubleBuffer()
+    assert buf.version == -1
+    try:
+        buf.acquire()
+    except RuntimeError:
+        pass
+    else:
+        raise AssertionError("acquire before publish should raise")
+    gap = buf.publish(1, {"w": 1.0})
+    assert gap >= 0.0 and buf.version == 1 and buf.swaps == 1
+    assert version_for(0, 2) == 1 and version_for(5, 2) == 3
+
+    # hammer publish from a writer thread while readers acquire: every
+    # snapshot must be internally consistent (version matches payload)
+    stop = threading.Event()
+    errors = []
+
+    def writer() -> None:
+        v = 2
+        while not stop.is_set():
+            buf.publish(v, {"w": float(v)})
+            v += 1
+
+    def reader() -> None:
+        for _ in range(20000):
+            version, weights = buf.acquire()
+            if weights["w"] != float(version):
+                errors.append((version, weights))
+                return
+
+    w = threading.Thread(target=writer)
+    readers = [threading.Thread(target=reader) for _ in range(4)]
+    w.start()
+    for r in readers:
+        r.start()
+    for r in readers:
+        r.join()
+    stop.set()
+    w.join()
+    assert not errors, f"torn read: {errors[:3]}"
+
+    # block=True waits for the incoming tensors on their device's stream
+    dev = torch.device(device)
+    weights = {"w": torch.full((1 << 16,), 3.0, device=dev) * 2.0}
+    tensors = DoubleBuffer()
+    gap = tensors.publish(7, weights, block=True)
+    version, got = tensors.acquire()
+    assert gap >= 0.0 and version == 7 and got is weights
+    assert bool((got["w"] == 6.0).all()) and got["w"].device.type == dev.type
+    return "serve.swap selftest: OK"
+
+
+if __name__ == "__main__":
+    import sys
+
+    print(selftest(*sys.argv[1:2]))

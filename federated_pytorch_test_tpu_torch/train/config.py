@@ -35,6 +35,7 @@ class FederatedConfig:
     init_model: bool = True        # Xavier kernels, 0.01 biases
     check_results: bool = True     # per-client test accuracy every round
     biased_input: bool = False     # per-client biased normalisation
+    be_verbose: bool = False       # print every epoch's per-client losses
     use_resnet: bool = False       # model "auto" -> resnet18 instead of net
     model: str = "auto"            # auto|net|net1|net2|resnet9|resnet18
     norm: str = "batch"            # ResNet norm: batch | group

@@ -188,7 +188,8 @@ class CPCTrainer(RoundKernel):
         for m in self.models.values():
             m.to(self.device).requires_grad_(False)
         self.lbfgs = LBFGSNew(history_size=lbfgs_history,
-                              max_iter=lbfgs_max_iter)
+                              max_iter=lbfgs_max_iter, batch_mode=True,
+                              line_search_fn=True)
         # common init (the reference seeds all K clients identically); a
         # CPU generator, so the weights do not depend on the device
         gen = torch.Generator().manual_seed(cfg.init_seed)

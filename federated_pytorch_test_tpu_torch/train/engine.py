@@ -331,7 +331,8 @@ class BlockwiseFederatedTrainer(RoundKernel):
         # batch mode with the backtracking line search, lr 1.0
         # (federated_multi.py:158); lr_for_block feeds Adam only
         self.lbfgs = LBFGSNew(history_size=cfg.lbfgs_history_size,
-                              max_iter=cfg.lbfgs_max_iter)
+                              max_iter=cfg.lbfgs_max_iter, batch_mode=True,
+                              line_search_fn=True)
         stack = lambda t: (t.unsqueeze(0).expand(K, *t.shape).contiguous()
                            .to(self.device))
         self.params0 = tree_map(stack, params)
@@ -1109,6 +1110,13 @@ class BlockwiseFederatedTrainer(RoundKernel):
                 state, ci, y, z, rho, xb, yb, wb, counter,
                 active=train_m if partial else None, norm=cnorm)
             loss_acc = losses if loss_acc is None else loss_acc + losses
+            if cfg.be_verbose:
+                # per-client epoch losses (the reference's be_verbose
+                # prints, federated_multi.py:199-200): the only host sync
+                # inside the epoch loop
+                log(f"verbose: block={ci} nadmm={nadmm} epoch={nepoch} "
+                    "client_loss=" + np.array2string(losses.cpu().numpy(),
+                                                     precision=4))
             if obs.enabled:
                 self._obs_sync(obs)
                 phase_marks += [("stage", "phase", t_stage, t_staged),

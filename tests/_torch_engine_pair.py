@@ -52,12 +52,13 @@ def _spread(tree, scale: float, seed: int):
 
 def run_both(jmodel, tmodel, jalgo, talgo, cfg: dict, blocks: int = 2,
              independent: bool = False, spread: float = 0.0,
-             replay=None, port_cfg=None) -> dict:
+             replay=None, port_cfg=None, jlog=SILENT, tlog=SILENT) -> dict:
     """Both engines on ``cfg`` (over :data:`BASE`) from the same weights,
     the first ``blocks`` blocks.  ``spread``: start every client from its
     own seeded offset of the common init.  ``replay(tt)`` prepares the port
     trainer before its run (a seam for random streams).  ``port_cfg``:
-    fields of the port's config that differ (its obs directory)."""
+    fields of the port's config that differ (its obs directory).
+    ``jlog``/``tlog``: the runs' log callables."""
     cfg = dict(BASE, **cfg)
     with force_comm_kernels_impl("pallas_interpret"):
         jt = JTrainer(jmodel(), JConfig(device_data=False, **cfg),
@@ -69,7 +70,7 @@ def run_both(jmodel, tmodel, jalgo, talgo, cfg: dict, blocks: int = 2,
             p0 = _spread(p0, spread, seed=7)
             jt.params0 = stage_tree_global(p0, client_sharding(jt.mesh))
         run = jt.run_independent if independent else jt.run
-        jstate, jhist = run(log=SILENT)
+        jstate, jhist = run(log=jlog)
     tt = TTrainer(tmodel(), TConfig(device="cpu", **dict(cfg, **(port_cfg or {}))),
                   TData(**DATA), talgo)
     tt.L = blocks
@@ -77,7 +78,7 @@ def run_both(jmodel, tmodel, jalgo, talgo, cfg: dict, blocks: int = 2,
         replay(tt)
     start = ClientState(*bridge.classifier_state_from_jax(p0, b0))
     run = tt.run_independent if independent else tt.run
-    tstate, thist = run(start, log=SILENT)
+    tstate, thist = run(start, log=tlog)
     tparams, tstats = bridge.classifier_state_to_jax(tstate.params,
                                                      tstate.batch_stats)
     return dict(jhist=jhist, thist=thist, p0=p0, b0=b0, jt=jt, tt=tt,

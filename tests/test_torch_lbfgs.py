@@ -108,7 +108,8 @@ def test_steps_match_jax(case, history, max_iter):
     jf, tf, x0, batches = CASES[case]()
     jopt = JLBFGS(history_size=history, max_iter=max_iter, batch_mode=True,
                   line_search_fn=True)
-    topt = TLBFGS(history_size=history, max_iter=max_iter)
+    topt = TLBFGS(history_size=history, max_iter=max_iter, batch_mode=True,
+                  line_search_fn=True)
 
     @jax.jit
     def jstep(x, st, b):
