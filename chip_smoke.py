@@ -60,7 +60,8 @@ which stops the script with a non-zero exit if it fails:
    ResNet18, K=10 clients, batch 128, float32, krum with
    ``--robust-chunked`` over a 2-shard client mesh), with the Gram launch
    count set to 0 just before and read just after.  Cut: Nloop 12 -> 1 and
-   Nadmm 5 -> 2 (one rotation over the 10 blocks, 20 rounds), 1,280
+   Nadmm 5 -> 1 (one rotation over the 10 blocks, 10 rounds; Nadmm 2
+   until slice 10, whose phase 32 needed the time), 1,280
    training images per client instead of 5,000, 1,000 test images; the
    data is the synthetic CIFAR-10 (the dataset is not in the repository).
    Every round's loss and residuals finite, every block changed, the Gram
@@ -94,7 +95,7 @@ which stops the script with a non-zero exit if it fails:
     host-only times, the plain versions' time and the bound;
 12. slice 3 at full width: ``drivers.consensus_multi`` with ResNet18,
     ``--compress q8 --fused-collective --num-devices 2`` and slice 2's cuts
-    (20 rounds), the B1/B2 launch counts set to 0 just before and read just
+    (10 rounds), the B1/B2 launch counts set to 0 just before and read just
     after.  Every round's loss and residuals finite, every block changed,
     both kernels launched in every round, ``bytes_fused`` equal to the byte
     model and ``bytes_on_wire`` to K times the codec's payload;
@@ -310,13 +311,33 @@ which stops the script with a non-zero exit if it fails:
     stiff quadratic of 1,000,000 float32 on the card and the same call on
     the CPU: the loss falls and stays finite, the closure evaluations
     agree, x within ``LBFGS_FULL_RTOL`` of max |x|.
+32. slice 10, the engine's throughput knobs at full width:
+    ``drivers.consensus_multi`` on ResNet18 in float32, K=10, batch 128,
+    1,280 synthetic images per client, the sweep cut to its first block,
+    Nadmm 2 (``KNOBS_BASE``), the six runs in turn in one deterministic
+    child (phase 25's mechanism), started before phase 30 and collected
+    after phase 31: (a) ``--compress q8 --fused-collective --num-devices 2
+    --Nepoch 2``, ``--no-device-data`` against ``--device-data
+    --fused-rounds``: the parameters (a sha256 of every tensor) and every
+    loss and residual bit for bit, ``host_dispatches`` [2, 2] off and
+    [1, 1] on, B1 and B2 launched in every round; (b) ``--robust-agg krum
+    --robust-chunked --num-devices 2``, ``--no-device-data`` against
+    ``--device-data --overlap-staging --overlap-round``: bit for bit,
+    ``overlap_dispatch_seconds`` above 0 on the block's first round and
+    0.0 on its last, B3 launched in every round; (c) dense ADMM at D=2,
+    Nadmm 1, against ``--sharded-update`` (on the one-card mesh the
+    replicated mean serves it): the trained block within
+    ``SHARDED_RTOL``/``SHARDED_ATOL``, and whether every parameter is bit
+    for bit printed.  The child runs one intra-op thread and prints its
+    start-up and runs' seconds.  Printed only: each run's round times.
 
 Phases 15-21, 24 and 25 run no hand-written kernel (top-k, the
 scatter-add, the L-BFGS update and the VAEs are stock PyTorch, as in the
 JAX package they are XLA; phase 24's q8 exchange is not fused); the
 kernel line's launches are those of phases 5, 26 and 27 (B4, B5; phase
-27's counted in its children), phases 8, 22, 26 and 29 (B3) and phases
-12, 23, 28 and 30 (B1, B2); phase 31 runs none.  Every driver phase
+27's counted in its children), phases 8, 22, 26, 29 and 32 (B3) and
+phases 12, 23, 28, 30 and 32 (B1, B2; phase 32's counted in its
+children); phase 31 runs none.  Every driver phase
 before 26 passes ``--obs-sinks none``.
 
 The line before the last is the per-kernel JSON record (with each
@@ -381,12 +402,14 @@ GRAM_SEQUENCE = ((10, 100_003), (10, 1_000_000), (17, 60_000))
 #: slice 2 as chip_smoke drives it (see the module docstring for the cuts)
 SLICE2_ARGV = ["--device", "cuda", "--model", "resnet18", "--robust-agg",
                "krum", "--robust-chunked", "--num-devices", "2", "--Nloop",
-               "1", "--Nadmm", "2", "--n-train", "1280", "--n-test", "1000",
+               "1", "--Nadmm", "1", "--n-train", "1280", "--n-test", "1000",
                "--no-save-model",
     "--obs-sinks", "none"]
-#: rounds of phases 8, 12, 15, 22 and 24 (one rotation of the 10 blocks,
-#: Nadmm 2)
+#: rounds of phases 15, 22 and 24 (one rotation of the 10 blocks, Nadmm 2)
 SLICE2_ROUNDS = 20
+#: rounds of phases 8 and 12 (Nadmm 1 since slice 10, for the 900 s budget:
+#: phases 22 and 23 run B3 and B1/B2 at Nadmm 2)
+SLICE23_ROUNDS = 10
 LARGEST_BLOCK_N = 4_720_640
 #: B1/B2 shapes: the largest and the stem shard of ResNet18 at D=2, then
 #: edge cases (a 2-wide row, a width that is not a multiple of 4, rows that
@@ -401,7 +424,7 @@ QUANT_RING = 8
 #: the q8 fused collective in place of krum
 SLICE3_ARGV = ["--device", "cuda", "--model", "resnet18", "--compress", "q8",
                "--fused-collective", "--num-devices", "2", "--Nloop", "1",
-               "--Nadmm", "2", "--n-train", "1280", "--n-test", "1000",
+               "--Nadmm", "1", "--n-train", "1280", "--n-test", "1000",
                "--no-save-model",
     "--obs-sinks", "none"]
 #: the byte models at the largest block (ops/packed_reduce.py,
@@ -580,6 +603,29 @@ SOAK_ARGV = [
 SOAK_ROUNDS, SOAK_PREEMPT_ROUND = 10, 6
 #: phase 31: the streams of phases 28-30 kept for the readers, under
 #: build/ (listed in .gitignore)
+#: phase 32 (slice 10): the throughput knobs at full width, ResNet18 in
+#: float32, K=10, batch 128, 1,280 synthetic images per client, one block
+#: (the children cut the sweep to its first block), Nadmm 2; each case a
+#: pair of deterministic children, the knobs off and on
+KNOBS_BASE = [
+    "--device", "cuda", "--model", "resnet18", "--K", "10",
+    "--default-batch", "128", "--Nloop", "1", "--Nadmm", "2",
+    "--n-train", "1280", "--n-test", "1000", "--no-check-results",
+    "--no-save-model", "--obs-sinks", "none"]
+#: case -> (flags of both runs, the knobs-off run's, the knobs-on run's)
+KNOBS_CASES = {
+    "fused": (["--compress", "q8", "--fused-collective", "--num-devices",
+               "2", "--Nepoch", "2"], ["--no-device-data"],
+              ["--device-data", "--fused-rounds"]),
+    "overlap": (["--robust-agg", "krum", "--robust-chunked",
+                 "--num-devices", "2"], ["--no-device-data"],
+                ["--device-data", "--overlap-staging", "--overlap-round"]),
+    "sharded": (["--num-devices", "2", "--Nadmm", "1"], [],
+                ["--sharded-update"]),
+}
+#: the sharded update's band against the replicated mean (the JAX
+#: package's declared rtol)
+SHARDED_RTOL, SHARDED_ATOL = 2e-5, 1e-6
 STREAMS_DIR = os.path.join(ROOT, "build", "streams")
 KEPT_STREAMS: dict = {}
 #: phase 31's full-batch L-BFGS: a stiff quadratic 0.5 * sum(h * x^2) over
@@ -1148,8 +1194,8 @@ def run_slice2(dev):
             "block", "nadmm", "N", "loss", "dual_residual", "primal_residual",
             "round_seconds", "stage_seconds", "train_seconds", "comm_seconds",
             "kernel_launches")}))
-    if len(history) != SLICE2_ROUNDS:
-        fail(f"expected {SLICE2_ROUNDS} rounds, got {len(history)}")
+    if len(history) != SLICE23_ROUNDS:
+        fail(f"expected {SLICE23_ROUNDS} rounds, got {len(history)}")
     for rec in history:
         if not all(np.isfinite(rec[k]) for k in
                    ("loss", "dual_residual", "primal_residual")):
@@ -1510,8 +1556,8 @@ def run_slice3(dev):
             "block", "nadmm", "N", "loss", "dual_residual", "primal_residual",
             "round_seconds", "stage_seconds", "train_seconds", "comm_seconds",
             "bytes_on_wire", "bytes_fused", "kernel_launches")}))
-    if len(history) != SLICE2_ROUNDS:
-        fail(f"expected {SLICE2_ROUNDS} rounds, got {len(history)}")
+    if len(history) != SLICE23_ROUNDS:
+        fail(f"expected {SLICE23_ROUNDS} rounds, got {len(history)}")
     for rec in history:
         if not all(np.isfinite(rec[k]) for k in
                    ("loss", "dual_residual", "primal_residual")):
@@ -2723,6 +2769,61 @@ def child_main(spec_json: str) -> None:
                     f)
 
 
+def knobs_child_main(spec_json: str) -> None:
+    """Phase 32's child: ``spec["runs"]`` in turn in one deterministic
+    process (cuBLAS workspace and ``torch.use_deterministic_algorithms``
+    set before the first handle, one intra-op thread), each
+    ``drivers.consensus_multi`` with the sweep cut to its first block.
+    Pickles, per run, the history, a sha256 of every parameter and
+    statistic, the trained block's [K, N] stack and the run's seconds."""
+    import pickle
+
+    t_child = time.perf_counter()
+    spec = json.loads(spec_json)
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    import torch
+
+    torch.use_deterministic_algorithms(True)
+    torch.set_num_threads(1)
+    sys.path.insert(0, ROOT)
+    from federated_pytorch_test_tpu_torch.drivers import common, consensus_multi
+
+    make = common.make_trainer
+
+    def first_block(*a, **kw):
+        t = make(*a, **kw)
+        t.L = 1
+        return t
+    common.make_trainer = first_block
+    result = {"startup_seconds": time.perf_counter() - t_child}
+    for side, argv in spec["runs"].items():
+        t0 = time.perf_counter()
+        trainer, state, history = consensus_multi.main(argv,
+                                                       log=lambda m: None)
+        result[side] = {"history": history,
+                        "seconds": time.perf_counter() - t0,
+                        **knobs_child_result(trainer, state)}
+        del trainer, state
+    with open(os.path.join(spec["dir"], spec["tag"] + ".pkl"), "wb") as f:
+        pickle.dump(result, f)
+
+
+def knobs_child_result(trainer, state) -> dict:
+    """A phase 32 child's end state: a sha256 of every parameter and
+    statistic, and the trained block's [K, N] stack as numpy."""
+    import hashlib
+
+    from federated_pytorch_test_tpu_torch.utils import codec
+    from federated_pytorch_test_tpu_torch.utils.tree import leaves
+
+    h = hashlib.sha256()
+    for t in leaves((state.params, state.batch_stats)):
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    block = codec.get_trainable_stack(state.params, trainer.order,
+                                      trainer.mask_for_block(0))
+    return {"digest": h.hexdigest(), "block": block.cpu().numpy()}
+
+
 def run_preempt_resume() -> None:
     """Phase 25: preemption and resume in child processes, bit for bit."""
     import pickle
@@ -2828,6 +2929,114 @@ def run_preempt_resume() -> None:
             reference[1].kill()
             reference[1].wait()
         shutil.rmtree(work, ignore_errors=True)
+
+
+def start_knobs():
+    """Phase 32's start: one deterministic child that runs the six runs
+    of ``KNOBS_CASES`` in turn (processes on one card time-slice it, so
+    more children only add start-ups and warm-ups).  Started before phase
+    30, so that its start-up runs beside phase 30 and its runs beside
+    phase 31's host-only readers; :func:`finish_knobs` collects it."""
+    import tempfile
+
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="knobs-", dir=os.path.join(ROOT, "build"))
+    runs = {}
+    for case, (both, off, on) in KNOBS_CASES.items():
+        runs[f"{case}-off"] = [*KNOBS_BASE, *both, *off]
+        runs[f"{case}-on"] = [*KNOBS_BASE, *both, *on]
+    spec = {"runs": runs, "dir": work, "tag": "knobs"}
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--phase32-child",
+         json.dumps(spec)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return proc, work, time.perf_counter()
+
+
+def finish_knobs(started) -> dict:
+    """Phase 32: the throughput knobs at full width (the child of
+    :func:`start_knobs`), checked.  Returns the launches of B1, B2 and B3
+    in the child's runs (every one a run of the main path)."""
+    import pickle
+    import shutil
+
+    proc, work, t0 = started
+    t_wait = time.perf_counter()
+    try:
+        out, err = proc.communicate(timeout=900)
+        if proc.returncode != 0:
+            log(out[-4000:])
+            log(err[-4000:])
+            fail(f"phase 32's child exited {proc.returncode}")
+        with open(os.path.join(work, "knobs.pkl"), "rb") as f:
+            runs = pickle.load(f)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        shutil.rmtree(work, ignore_errors=True)
+    log(f"knobs child: start-up {runs.pop('startup_seconds'):.2f} s, runs "
+        + ", ".join(f"{tag} {r['seconds']:.2f} s" for tag, r in runs.items()))
+    wall, waited = time.perf_counter() - t0, time.perf_counter() - t_wait
+    launches = {"quantize_chunks": 0, "dequant_add": 0, "gram": 0}
+    for tag, r in runs.items():
+        h = r["history"]
+        for rec in h:
+            for k in launches:
+                launches[k] += rec["kernel_launches"][k]
+        log(f"knobs {tag}: N={h[0]['N']} round_seconds "
+            f"{[round(x['round_seconds'], 3) for x in h]} host_dispatches "
+            f"{[x['host_dispatches'] for x in h]} launches "
+            f"{[x['kernel_launches'] for x in h]}")
+
+    def values(tag):
+        return [(x["loss"], x.get("dual_residual"), x.get("primal_residual"))
+                for x in runs[tag]["history"]]
+
+    for case in ("fused", "overlap"):
+        off, on = runs[case + "-off"], runs[case + "-on"]
+        same = (off["digest"] == on["digest"]
+                and values(case + "-off") == values(case + "-on"))
+        log(f"knobs {case}: knobs on vs off, parameters and every loss and "
+            f"residual bit for bit: {same}")
+        if not same:
+            fail(f"phase 32 ({case}): the knobs change the numbers")
+    hd = [[x["host_dispatches"] for x in runs["fused-" + s]["history"]]
+          for s in ("off", "on")]
+    if hd != [[2, 2], [1, 1]]:
+        fail(f"phase 32 (fused): host_dispatches off/on {hd}, not "
+             "[2, 2] and [1, 1]")
+    for s in ("off", "on"):
+        for x in runs["fused-" + s]["history"]:
+            kl = x["kernel_launches"]
+            if kl["quantize_chunks"] < 1 or kl["dequant_add"] < 1:
+                fail(f"phase 32 (fused-{s}): B1/B2 not launched in a round "
+                     f"({kl})")
+        for x in runs["overlap-" + s]["history"]:
+            if x["kernel_launches"]["gram"] < 1:
+                fail(f"phase 32 (overlap-{s}): B3 not launched in a round")
+    od = [x["overlap_dispatch_seconds"]
+          for x in runs["overlap-on"]["history"]]
+    if not (od[0] > 0 and od[-1] == 0.0):
+        fail(f"phase 32 (overlap): overlap_dispatch_seconds {od}, not > 0 "
+             "on the block's first round and 0.0 on its last")
+    import torch
+
+    a, b = runs["sharded-off"]["block"], runs["sharded-on"]["block"]
+    err, ok = within(torch.from_numpy(b), torch.from_numpy(a), SHARDED_RTOL,
+                     SHARDED_ATOL)
+    bitwise = runs["sharded-off"]["digest"] == runs["sharded-on"]["digest"]
+    log(f"knobs sharded: the trained block [{a.shape[0]}, {a.shape[1]}] "
+        f"with --sharded-update (the replicated mean serves it on one "
+        f"card) vs without: max |diff| {err:.3e} "
+        f"(rtol {SHARDED_RTOL}, atol {SHARDED_ATOL}: within {ok}); every "
+        f"parameter bit for bit: {bitwise}")
+    if not ok:
+        fail("phase 32 (sharded): the sharded update leaves the band")
+    log(f"phase 32: {wall:.2f} s from its start (phases 30 and 31 ran "
+        f"meanwhile), {waited:.2f} s of it after phase 31, launches "
+        f"{launches}")
+    return launches
 
 
 def cpc_flat_blocks(trainer) -> dict:
@@ -3693,12 +3902,19 @@ def main() -> None:
     for k, v in run_chaos(dev).items():
         quant_launches[k] += v
     gram_launches += run_serving(dev)
+    # phase 32's child starts up (imports, data) beside phase 30, and runs
+    # on the card beside phase 31's host-only readers
+    knobs_child = start_knobs()
     for k, v in run_soak_campaign(dev).items():
         quant_launches[k] += v
     t31 = time.perf_counter()
     run_readers()
     run_lbfgs_full(dev)
     log(f"phase 31: {time.perf_counter() - t31:.2f} s")
+    knobs = finish_knobs(knobs_child)
+    gram_launches += knobs.pop("gram")
+    for k, v in knobs.items():
+        quant_launches[k] += v
     log(f"summary: krum's selection on the raw y + rho*x stack, kernel vs "
         f"gram_plain: {raw_krum}")
 
@@ -3732,7 +3948,7 @@ def main() -> None:
             "ms": k_ms, "device_ms": quant_device[name], "plain_ms": p_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": l_ms,
             **extra[name]})
-    log(f"chip_smoke: phases 1-31 in {time.perf_counter() - t_start:.1f} s")
+    log(f"chip_smoke: phases 1-32 in {time.perf_counter() - t_start:.1f} s")
     log(card)                        # again here, where an output tail keeps it
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
@@ -3743,5 +3959,7 @@ def main() -> None:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--phase25-child"]:      # phases 25 and 27
         child_main(sys.argv[2])
+    elif sys.argv[1:2] == ["--phase32-child"]:
+        knobs_child_main(sys.argv[2])
     else:
         main()

@@ -126,7 +126,8 @@ class FederatedCifar10:
     """K-client CIFAR-10 as dense per-epoch uint8 arrays.
 
     ``epoch_batches_raw(seed)`` gives ``[K, steps, B, 32, 32, 3]`` uint8,
-    ``[K, steps, B]`` int32 labels and float32 pad weights;
+    ``[K, steps, B]`` int32 labels and float32 pad weights, the rows of
+    ``epoch_indices(seed)``;
     ``test_batches_raw()`` the whole test set once, wrap-padded to whole
     batches.  ``steps`` counts the wrap-padded remainder batch.
     """
@@ -173,25 +174,44 @@ class FederatedCifar10:
         """Per-client (mean, std) [K, 2, 3]."""
         return self._norm
 
-    def epoch_batches_raw(self, seed: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-        """One shuffled epoch: ([K, steps, B, 32, 32, 3] uint8,
-        [K, steps, B] int32 labels, [K, steps, B] float32 pad weights)."""
+    def train_shards_raw(self) -> Tuple[np.ndarray, np.ndarray]:
+        """The raw per-client shards ([K, n, 32, 32, 3] uint8, [K, n]
+        int32): what the engine's device-resident path puts on the device
+        once (``train/engine.py`` ``_setup_device_data``)."""
+        return self._train_x, self._train_y
+
+    def epoch_indices(self, seed: int) -> np.ndarray:
+        """One shuffled epoch's ``[K, steps * B]`` int64 row indices into
+        each client's shard: client k's permutation from one
+        ``default_rng(seed)`` stream, in client order, wrap-padded to whole
+        batches.  Both the host gather (:meth:`epoch_batches_raw`) and the
+        engine's device gather read these rows."""
         rng = np.random.default_rng(seed)
         n = self.steps * self.batch
-        w_flat = np.ones(n, np.float32)
-        if self.remainder:
-            w_flat[self.steps * self.batch - self.batch + self.remainder:] = 0.0
-        xs, ys = [], []
+        idx = np.empty((self.K, n), np.int64)
         for ck in range(self.K):
             perm = rng.permutation(self.samples_per_client)
             if n > len(perm):                 # wrap-pad the remainder batch
                 perm = np.concatenate([perm, perm[: n - len(perm)]])
-            perm = perm[:n]
-            xs.append(self._train_x[ck, perm].reshape(
-                self.steps, self.batch, *IMAGE_SHAPE))
-            ys.append(self._train_y[ck, perm].reshape(self.steps, self.batch))
-        w = np.tile(w_flat.reshape(1, self.steps, self.batch), (self.K, 1, 1))
-        return np.stack(xs), np.stack(ys), w
+            idx[ck] = perm[:n]
+        return idx
+
+    def pad_weights(self) -> np.ndarray:
+        """[K, steps, B] float32: 0 on the wrap-pad rows of the last
+        partial minibatch, 1 elsewhere (the same every epoch)."""
+        w = np.ones((self.K, self.steps, self.batch), np.float32)
+        if self.remainder:
+            w[:, -1, self.remainder:] = 0.0
+        return w
+
+    def epoch_batches_raw(self, seed: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """One shuffled epoch: ([K, steps, B, 32, 32, 3] uint8,
+        [K, steps, B] int32 labels, [K, steps, B] float32 pad weights)."""
+        idx = self.epoch_indices(seed)
+        rows = np.arange(self.K)[:, None]
+        shape = (self.K, self.steps, self.batch)
+        return (self._train_x[rows, idx].reshape(*shape, *IMAGE_SHAPE),
+                self._train_y[rows, idx].reshape(shape), self.pad_weights())
 
     def test_batches_raw(self, batch: Optional[int] = None
                          ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:

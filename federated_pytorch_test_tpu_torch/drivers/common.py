@@ -14,9 +14,7 @@ otherwise), the restart supervisor (``--max-restarts``, which turns the
 mid-run checkpoint on) and the soak harness (``--campaign-spec``, which
 turns the mid-run checkpoint on and runs under ``campaign/harness.py``
 ``run_soak``, its waits scaled by ``--campaign-accel``).  A driver may hand in its own trainer class, model
-and extra flags, and refuses the flags of what it fixes.  A knob of the
-JAX driver that the port does not have yet is refused by name instead of
-being ignored.
+and extra flags, and refuses the flags of what it fixes.
 """
 
 from __future__ import annotations
@@ -53,12 +51,6 @@ _MODELS = {"net": Net, "net1": Net1, "net2": Net2,
            "resnet9": ResNet9, "resnet18": ResNet18}
 MODEL_CHOICES = ("auto",) + tuple(_MODELS)
 
-#: flags of the JAX classifier drivers whose features the port does not
-#: have yet (ROADMAP.md): given on the command line, they raise
-UNPORTED = (
-    "fused-rounds", "overlap-staging", "overlap-round",
-    "sharded-update", "device-data")
-
 #: parse_config's default of a ``fixed`` field, to tell it from a given one
 _FIXED = object()
 
@@ -69,12 +61,14 @@ def build_parser(defaults: FederatedConfig, prog: str) -> argparse.ArgumentParse
         prog=prog, description="Federated CIFAR-10 driver (PyTorch + CUDA)")
     optional_types = {"data_dir": str, "num_devices": int,
                       "profile_dir": str, "obs_dir": str}
+    # tri-state booleans: absent -> None (auto), --flag/--no-flag override
+    optional_bools = {"device_data"}
     for f in dataclasses.fields(FederatedConfig):
         default = getattr(defaults, f.name)
         arg = "--" + f.name.replace("_", "-")
         if f.name == "device":
             p.add_argument(arg, choices=("cuda", "cpu"), default=default)
-        elif isinstance(default, bool):
+        elif f.name in optional_bools or isinstance(default, bool):
             p.add_argument(arg, action=argparse.BooleanOptionalAction,
                            default=default)
         elif f.name == "optimizer":
@@ -136,16 +130,12 @@ def build_parser(defaults: FederatedConfig, prog: str) -> argparse.ArgumentParse
                    help="cap samples per client (smoke runs)")
     p.add_argument("--n-test", type=int, default=None,
                    help="cap test-set size (smoke runs)")
-    for name in UNPORTED:
-        p.add_argument(f"--{name}", f"--no-{name}", dest=f"unported_{name}",
-                       nargs="?", const=True, default=None,
-                       help=argparse.SUPPRESS)
     return p
 
 
 def parse_config(defaults: FederatedConfig, prog: str, argv=None,
                  add_args: Optional[Callable] = None, fixed=()):
-    """(FederatedConfig, args) from ``argv``; an unported knob raises.
+    """(FederatedConfig, args) from ``argv``.
     ``add_args(parser)`` adds a driver's own flags; ``fixed`` names the
     FederatedConfig fields the driver sets itself, whose flags raise too."""
     p = build_parser(defaults, prog)
@@ -153,10 +143,6 @@ def parse_config(defaults: FederatedConfig, prog: str, argv=None,
         add_args(p)
     p.set_defaults(**{name: _FIXED for name in fixed})
     args = p.parse_args(argv)
-    given = [n for n in UNPORTED if getattr(args, f"unported_{n}") is not None]
-    if given:
-        p.error(f"--{given[0]} is not ported to the PyTorch package yet "
-                "(see ROADMAP.md)")
     for name in fixed:
         if getattr(args, name) is not _FIXED:
             p.error(f"--{name.replace('_', '-')} is fixed by {prog}")

@@ -6,10 +6,9 @@ classifier drivers: FedAvg, FedProx, ADMM consensus and the no-consensus
 baseline, with the robust or compressed exchange and Adam or L-BFGS, the
 robustness shell of a round and its checkpoints, the record stream, the
 health watchdog, the control plane, the restart supervisor, the soak
-campaigns and the serving plane),
-with the JAX package's defaults, plus the
-device the run uses.  A knob of the JAX package that is missing here is not
-ported yet (``ROADMAP.md``); the drivers refuse it by name.
+campaigns, the serving plane and the engine's throughput knobs), with
+the JAX package's defaults, plus the device the run uses.  A knob of the
+JAX package that is missing here is not ported yet (``ROADMAP.md``).
 """
 
 from __future__ import annotations
@@ -127,5 +126,32 @@ class FederatedConfig:
     data_dir: Optional[str] = None  # CIFAR-10 pickle batches (else synthetic)
     drop_last_sample: bool = True  # reference off-by-one parity
     prefetch: bool = True          # build epoch n+1's host batches ahead
+
+    # the engine's throughput knobs (train/engine.py); each gives the same
+    # numbers on and off, bit for bit
+    # device-resident training data: the uint8 shards go to the device
+    # once and every epoch is a gather there by the [K, steps*B] row
+    # indices the host path draws (the same rows).  None = auto: on when
+    # the shards fit FEDTPU_DEVICE_DATA_MB (default 2048); off, and True
+    # raises, under population sampling
+    device_data: Optional[bool] = None
+    # one host call a round: the Nepoch local epochs on device-resident
+    # data and the communication update, no host read or sync between its
+    # first launch and the round's reads (the L-BFGS line search
+    # excepted); falls back with a warning without device data, under
+    # be_verbose or population
+    fused_rounds: bool = False
+    # stage the next epoch (H2D from pinned memory on a side stream)
+    # between the comm step's launch and the host's first read of it
+    overlap_staging: bool = False
+    # launch round N+1's first local epoch before the host blocks on round
+    # N's diagnostics; falls back with a warning under fused_rounds, the
+    # update guard, async rounds, faults or churn, a campaign, population
+    overlap_round: bool = False
+    # the consensus mean as a reduce-scatter of the shard sums, a divide
+    # on the owned segment and an all-gather; on the one-card mesh that is
+    # the replicated mean, which serves it.  Incompatible with
+    # --robust-agg, and the fused collective wins when both are on
+    sharded_update: bool = False
 
     device: str = "cuda"           # "cuda" or "cpu" (the CPU only on request)

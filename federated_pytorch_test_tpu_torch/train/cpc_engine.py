@@ -142,7 +142,7 @@ class CPCTrainer(RoundKernel):
             raise ValueError(
                 "the CPC engine has no compression path (--compress none "
                 "only); its wire format is the dense f32 block vector")
-        if cfg.fused_collective:
+        if cfg.fused_collective or cfg.sharded_update:
             raise ValueError(
                 "fused_collective/sharded_update are classifier-engine "
                 "comm paths; the CPC round has no fused reduction")
@@ -588,6 +588,9 @@ class CPCTrainer(RoundKernel):
         n_active = diag.get("n_active", self.K) if self._robust_round \
             else self.K
         rec = dict(nloop=nloop, model=mdl, block=ci, nadmm=nadmm, N=N,
+                   # the round's local-training calls: 1, 0 when every
+                   # client is out of the exchange
+                   host_dispatches=int(loss_host is not None),
                    dual_residual=float(dual),
                    loss=(float(losses.sum()) if loss_host is not None
                          else 0.0),

@@ -7,8 +7,9 @@ Port of ``BlockwiseFederatedTrainer`` of
 aggregation (``robust_agg``, ``robust_chunked``), the compressed exchange
 (``compress`` q8/q4/topk, ``error_feedback``, ``fused_collective``), the
 local optimizer (``optimizer`` adam or lbfgs), the robustness shell of a
-round and the mid-run checkpoint; the throughput knobs (device-resident
-data, fused rounds, overlap, sharded update) are not ported.  The loop nest of the reference is kept::
+round, the mid-run checkpoint and the throughput knobs (device-resident
+data, fused rounds, staging and round overlap, sharded update).  The loop
+nest of the reference is kept::
 
     Nloop (sweeps over the net) -> L blocks -> Nadmm (comm rounds)
       -> Nepoch (local epochs) -> K clients -> minibatches
@@ -29,11 +30,33 @@ the baseline: the whole net trains, Adam afresh every epoch, no comm.  The
 K clients are a loop on one device (the JAX ``vmap``); each keeps its own
 parameters, BatchNorm statistics, data and normalisation.
 
-Epoch data is built on the host from the counter-keyed seed of the JAX
-engine (``_epoch_seed``) and staged per epoch, the next epoch prepared on a
-one-worker pool meanwhile.  The JAX engine's device-resident permutation
-gather draws ``jax.random`` and has no counterpart here: parity runs pin
-``device_data=False`` on the JAX side.
+Epoch data comes from the counter-keyed seed of the JAX engine
+(``_epoch_seed``): its ``[K, steps*B]`` row indices are drawn on the host
+(``data.epoch_indices``), the next epoch's on a one-worker pool meanwhile.
+The host path gathers the batches there and copies them over each epoch;
+with ``device_data`` the shards live on the device and only the indices
+cross, the same rows either way, so ``device_data`` does not change the
+numbers.  The JAX engine's device path draws its shuffle with
+``jax.random`` instead, which torch cannot replay: the port's device path
+matches the JAX host path, and parity runs pin ``device_data=False`` on
+the JAX side.
+
+The throughput knobs change when the host launches work, never what is
+computed: ``fused_rounds`` stages a round's epoch indices up front and
+runs its epochs and update with no host read or sync in between;
+``overlap_staging`` stages the next epoch while the comm step runs, and
+``overlap_round`` launches the next round's first epoch before the host
+reads the round's results (:meth:`_read_async`); the epoch counter
+advances only when an epoch is consumed, so checkpoints and resume are
+exact under each of them.  ``sharded_update`` is accepted with the JAX
+engine's refusals; on the one-card client mesh a reduce-scatter of the
+shard sums would compute the replicated mean's numbers, so the
+replicated mean serves it.  Each round record carries
+``host_dispatches``, the JAX engine's count of local-training calls of
+the round (Nepoch, 1 when fused).  In the port it counts calls of a
+Python method, not launches on the device: every kernel is launched
+eagerly either way, and launch overhead is read from a profiled round's
+kernel count instead.
 
 The workload hooks are the JAX engine's: ``sweep`` ("blocks", or "layers":
 sweep unit ``ci`` is the (weight, bias) pair ``ci``), ``optimizer_for_block``
@@ -78,6 +101,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import dataclasses
+import os
 import time
 import warnings
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence
@@ -287,12 +311,13 @@ class BlockwiseFederatedTrainer(RoundKernel):
                 "(--compress q8/q4/topk): the fused reduction transports "
                 "the packed payloads, and the dense path has nothing to "
                 "keep packed")
-        if cfg.fused_collective and cfg.robust_agg != "none":
+        if (cfg.fused_collective or cfg.sharded_update) \
+                and cfg.robust_agg != "none":
             raise ValueError(
-                "fused_collective is incompatible with --robust-agg: it "
-                "replaces the aggregation chokepoint, and the robust "
-                "estimators need the full [K, N] stack replicated on every "
-                "device")
+                "fused_collective/sharded_update are incompatible with "
+                "--robust-agg: both replace the aggregation chokepoint, "
+                "and the robust estimators need the full [K, N] stack "
+                "replicated on every device")
         self._fused_coll = bool(cfg.fused_collective)
         if self._fused_coll and self.compressor.sparse and algorithm.needs_dual:
             warnings.warn(
@@ -310,6 +335,11 @@ class BlockwiseFederatedTrainer(RoundKernel):
                 cfg.robust_agg, trim_frac=cfg.trim_frac,
                 clip_mult=cfg.clip_mult, chunked=cfg.robust_chunked,
                 mesh=self.mesh)
+            # sharded_update: on the one-card mesh the reduce-scatter of
+            # the shard sums, the divide on the owned segment and the
+            # all-gather give the replicated mean's numbers, so the plain
+            # mean serves it (the fused collective, which already divides
+            # on the owned segment, wins when both are on)
         self._validate_round_cfg()
 
         # common init: every client starts from the same weights (drawn on
@@ -351,11 +381,69 @@ class BlockwiseFederatedTrainer(RoundKernel):
 
         # each block's frozen round shape (_block_flags)
         self._flag_cache: Dict[int, tuple] = {}
+        # epochs are keyed on this counter (_epoch_seed); it advances when
+        # an epoch is consumed
         self._epochs_staged = 0
         self._pending: Optional[tuple] = None
         self._stage_pool = (concurrent.futures.ThreadPoolExecutor(
             max_workers=1, thread_name_prefix="epoch-stage")
             if cfg.prefetch else None)
+        # local-training calls of the run (the round record's
+        # host_dispatches: Nepoch a round, 1 when fused; the JAX engine's
+        # count of dispatches, here of method calls, not of kernels)
+        self._host_dispatches = 0
+        # the staging look-ahead (cfg.overlap_staging): (counter, payload,
+        # needs_finish), and the pre-launched epoch (cfg.overlap_round):
+        # (coords, counter, (state, losses))
+        self._overlap = bool(cfg.overlap_staging)
+        self._staged_ahead: Optional[tuple] = None
+        self._round_ahead: Optional[tuple] = None
+        self._side_stream = None
+
+        # device-resident data (cfg.device_data; None = auto by size)
+        self._dev_x = None
+        if self._want_device_data():
+            self._setup_device_data()
+        # fused rounds need the epochs on the device; be_verbose reads the
+        # host every epoch
+        self._use_fused = bool(cfg.fused_rounds)
+        if self._use_fused and (self._dev_x is None or cfg.be_verbose):
+            why = ("be_verbose syncs the host every epoch"
+                   if cfg.be_verbose else
+                   "population sampling re-indexes epoch data on the host"
+                   if self._pop_active else
+                   "epoch data is not device-resident (device_data)")
+            warnings.warn(
+                f"fused_rounds requested but unusable: {why}; "
+                "falling back to the per-epoch round loop", stacklevel=2)
+            self._use_fused = False
+        # whole-round overlap: each excluded knob makes round N+1's inputs
+        # depend on round N's host-visible outcome
+        self._overlap_round = bool(cfg.overlap_round)
+        if self._overlap_round:
+            why = None
+            if self._use_fused or cfg.fused_rounds:
+                why = ("fused_rounds already runs the whole round as one "
+                       "dispatch — there is no host gap to hide")
+            elif cfg.update_guard:
+                why = ("guard verdicts decide the next round's "
+                       "quarantine set after the comm fetch")
+            elif cfg.async_rounds:
+                why = ("the async scheduler admits updates on the host "
+                       "between rounds")
+            elif self.faults.enabled:
+                why = ("fault/churn families tick host ledgers at every "
+                       "round boundary")
+            elif self.campaign is not None:
+                why = "campaign schedules re-derive the fault spec per round"
+            elif self._pop_active:
+                why = "population sampling rotates the cohort per round"
+            if why is not None:
+                warnings.warn(
+                    f"overlap_round requested but unsafe: {why}; "
+                    "falling back to the sequential round loop",
+                    stacklevel=2)
+                self._overlap_round = False
 
     # ------------------------------------------------------------------
     # blocks
@@ -457,37 +545,226 @@ class BlockwiseFederatedTrainer(RoundKernel):
             [self.cfg.seed, counter, stream]).integers(2**31))
 
     def _host_epoch(self, counter: int):
-        """Host-side shuffle + gather of epoch ``counter``."""
-        return self.data.epoch_batches_raw(self._epoch_seed(counter, 0))
+        """Host half of epoch ``counter`` (safe on the stage pool's
+        thread): the [K, steps*B] row indices with device-resident data,
+        else the shuffled and gathered batches."""
+        seed = self._epoch_seed(counter, 0)
+        if self._dev_x is not None:
+            return self.data.epoch_indices(seed)
+        return self.data.epoch_batches_raw(seed)
 
-    def _stage_epoch(self, last: bool = False):
-        """Device arrays (xb, yb, wb) of the next epoch; submits the one
-        after it to the stage pool unless this is the run's last."""
-        c = self._epochs_staged
-        self._epochs_staged += 1
+    # ------------------------------------------------------------------
+    # device-resident data (cfg.device_data)
+    # ------------------------------------------------------------------
+    def _want_device_data(self) -> bool:
+        """Resolve ``cfg.device_data`` (the JAX engine's gating): False
+        off; population sampling re-indexes epochs by the cohort on the
+        host, so auto resolves off there and an explicit True raises; a
+        pipeline without ``train_shards_raw`` raises on True; auto is on
+        when the shards fit ``FEDTPU_DEVICE_DATA_MB`` (default 2048)."""
+        want = self.cfg.device_data
+        if want is False:
+            return False
+        if self._pop_active:
+            if want:
+                raise ValueError(
+                    "device_data=True is incompatible with population "
+                    "sampling: epoch batches are re-indexed by the "
+                    "round's cohort on the host (only auto/False are "
+                    "valid here)")
+            return False
+        if not hasattr(self.data, "train_shards_raw"):
+            if want:
+                raise ValueError(
+                    "device_data=True but the data pipeline "
+                    f"({type(self.data).__name__}) exposes no "
+                    "train_shards_raw(); only auto/False are valid here")
+            return False
+        xt, yt = self.data.train_shards_raw()
+        if want is None:
+            budget = float(os.environ.get("FEDTPU_DEVICE_DATA_MB",
+                                          2048)) * 2**20
+            return xt.nbytes + yt.nbytes <= budget
+        return True
+
+    def _setup_device_data(self) -> None:
+        """Put the uint8 shards, their int32 labels and the pad weights on
+        the device once; every epoch is then a gather there
+        (:meth:`_gather_epoch`).  Ends in a sync, so that the side stream
+        of the staging look-ahead may read the shards without waiting on
+        the main stream."""
+        xt, yt = self.data.train_shards_raw()
+        dev = self.device
+        self._dev_x = torch.from_numpy(np.array(xt)).to(dev)
+        self._dev_y = torch.from_numpy(np.array(yt, np.int32)).to(dev)
+        self._dev_w = torch.from_numpy(self.data.pad_weights()).to(dev)
+        self._dev_rows = torch.arange(self.cfg.K, device=dev)[:, None]
+        self._sync()
+
+    def _gather_epoch(self, idx: torch.Tensor):
+        """(xb, yb, wb) of one epoch from its [K, steps*B] row indices on
+        the device: the rows ``epoch_batches_raw`` gathers on the host."""
+        K, S, B = self.cfg.K, self.data.steps, self.data.batch
+        xb = self._dev_x[self._dev_rows, idx]
+        return (xb.view(K, S, B, *xb.shape[2:]),
+                self._dev_y[self._dev_rows, idx].view(K, S, B), self._dev_w)
+
+    # ------------------------------------------------------------------
+    # staging: every epoch is a pure function of its counter, which
+    # advances only when an epoch is consumed (checkpoints and resume)
+    # ------------------------------------------------------------------
+    def _total_epochs(self) -> int:
+        cfg = self.cfg
+        return cfg.Nloop * self.L * cfg.Nadmm * cfg.Nepoch
+
+    def _epoch_raw(self, c: int, last: bool = False):
+        """The host half of epoch ``c`` (from the prefetch when it holds
+        ``c``); submits epoch c+1 to the stage pool unless ``last``."""
         if self._pending is not None and self._pending[0] == c:
-            xb, yb, wb = self._pending[1].result()
+            raw = self._pending[1].result()
         else:
-            xb, yb, wb = self._host_epoch(c)
+            raw = self._host_epoch(c)
         self._pending = None
         if self._stage_pool is not None and not last:
             self._pending = (c + 1,
                              self._stage_pool.submit(self._host_epoch, c + 1))
-        if self._pop_active and self._cohort is not None:
-            # population: slot k trains on registry client cohort[k]'s shard
-            # (rid % K), applied here, after the counter-keyed prefetch
-            rows = (self._cohort % self.cfg.K).astype(np.int64)
-            xb, yb, wb = xb[rows], yb[rows], wb[rows]
+        return raw
+
+    def _finish_epoch(self, raw, ahead: bool = False):
+        """Device arrays ``((xb, yb, wb), event)`` of a host half: the
+        population re-index (slot k trains on registry client cohort[k]'s
+        shard, rid % K), then the copy to the device and, with device
+        data, the gather.  ``ahead`` (the staging look-ahead, on the
+        card): the copy goes from pinned memory, non-blocking, on a side
+        stream, and ``event`` marks its end; no synchronisation here."""
         dev = self.device
-        return (torch.from_numpy(xb).to(dev), torch.from_numpy(yb).to(dev),
-                torch.from_numpy(wb).to(dev))
+        if self._dev_x is None and self._pop_active and self._cohort is not None:
+            rows = (self._cohort % self.cfg.K).astype(np.int64)
+            raw = tuple(a[rows] for a in raw)
+        host = [raw] if self._dev_x is not None else list(raw)
+        if not (ahead and dev.type == "cuda"):
+            out = [torch.from_numpy(a).to(dev) for a in host]
+            return (self._gather_epoch(out[0]) if self._dev_x is not None
+                    else tuple(out)), None
+        if self._side_stream is None:
+            self._side_stream = torch.cuda.Stream(dev)
+        with torch.cuda.stream(self._side_stream):
+            out = [torch.from_numpy(a).pin_memory().to(dev, non_blocking=True)
+                   for a in host]
+            arrays = (self._gather_epoch(out[0]) if self._dev_x is not None
+                      else tuple(out))
+            event = torch.cuda.Event()
+            event.record(self._side_stream)
+        return arrays, event
+
+    @staticmethod
+    def _take_staged(staged):
+        """The arrays of a ``_finish_epoch`` result, ordered on the current
+        stream after their side-stream copy (a CUDA event wait, no host
+        sync) and handed over to its allocator."""
+        arrays, event = staged
+        if event is not None:
+            cur = torch.cuda.current_stream(arrays[0].device)
+            cur.wait_event(event)
+            for t in arrays:
+                t.record_stream(cur)
+        return arrays
+
+    def _stage_epoch(self, last: bool = False):
+        """Device arrays (xb, yb, wb) of the next epoch: the look-ahead's
+        when it staged this counter, else built now."""
+        c = self._epochs_staged
+        self._epochs_staged += 1
+        ahead, self._staged_ahead = self._staged_ahead, None
+        if ahead is not None and ahead[0] == c:
+            _, payload, needs_finish = ahead
+            return self._take_staged(self._finish_epoch(payload)
+                                     if needs_finish else payload)
+        return self._take_staged(self._finish_epoch(self._epoch_raw(c, last)))
+
+    def _fused_epoch_rows(self):
+        """A fused round's [Nepoch, K, steps*B] row indices on the device
+        and the epochs' counters; advances the counter by Nepoch, the
+        bookkeeping of the unfused loop, so a checkpoint taken after a
+        fused round resumes identically on either path."""
+        c0, n = self._epochs_staged, self.cfg.Nepoch
+        total = self._total_epochs()
+        idx = np.stack([self._epoch_raw(c0 + e, last=c0 + e == total - 1)
+                        for e in range(n)])
+        self._epochs_staged += n
+        return torch.from_numpy(idx).to(self.device), list(range(c0, c0 + n))
+
+    def _prestage_round(self) -> float:
+        """Staging/comm overlap (cfg.overlap_staging): stage the next epoch
+        now, between the comm step's launch and the host's first read of
+        its results.  A pure look-ahead on the counter: only consumption
+        (:meth:`_stage_epoch`) advances it, so checkpoints and a kill and
+        resume are exact.  Times the host work of the look-ahead, not its
+        copy (no sync); 0.0 when there is nothing left to stage.  Under
+        population the cohort is not drawn yet: the host half is staged
+        and finished at consumption."""
+        total = self._total_epochs()
+        c = self._epochs_staged
+        if c >= total or self._staged_ahead is not None:
+            return 0.0
+        t0 = time.perf_counter()
+        raw = self._epoch_raw(c, last=c == total - 1)
+        if self._pop_active:
+            self._staged_ahead = (c, raw, True)
+        else:
+            self._staged_ahead = (c, self._finish_epoch(raw, ahead=True),
+                                  False)
+        return time.perf_counter() - t0
+
+    def _predispatch_round(self, coords, state, z, y, rho, cnorm) -> float:
+        """Round-level overlap (cfg.overlap_round): launch the next round's
+        first local epoch now, behind this round's comm step, before the
+        host reads this round's results.  Its inputs are the comm step's
+        outputs (read, not changed) and the staging look-ahead's epoch;
+        its activity mask is the stateless participation draw of
+        ``coords``.  Values are those of the sequential loop; the counter
+        advances when :meth:`_take_round_ahead` consumes the result.
+        Returns the host seconds of the launch, 0.0 when skipped."""
+        c = self._epochs_staged
+        if c >= self._total_epochs():
+            return 0.0
+        t0 = time.perf_counter()
+        self._prestage_round()
+        # population, whose payload waits for the cohort, is gated off
+        assert self._staged_ahead is not None and not self._staged_ahead[2]
+        nloop, ci, nadmm = coords
+        active = None
+        if self._block_flags(ci)[0]:
+            active = (np.ones(self.cfg.K, np.float32)
+                      if self.cfg.participation >= 1.0
+                      else self._participation_host(nloop, ci, nadmm))
+        xb, yb, wb = self._take_staged(self._staged_ahead[1])
+        out = self.train_epoch(state, ci, y, z, rho, xb, yb, wb, c,
+                               active=active, norm=cnorm)
+        self._round_ahead = (coords, c, out)
+        return time.perf_counter() - t0
+
+    def _take_round_ahead(self, coords):
+        """The pre-launched epoch's (state, losses) if it was launched for
+        this round at the current counter (else None: recompute);
+        advances the counter as the sequential ``_stage_epoch`` would."""
+        ra, self._round_ahead = self._round_ahead, None
+        if ra is None:
+            return None
+        rc, c, out = ra
+        if rc != coords or c != self._epochs_staged:
+            return None
+        self._epochs_staged += 1
+        self._staged_ahead = None
+        self._host_dispatches += 1
+        return out
 
     def close(self) -> None:
         """Release the stage pool (a pending prefetch is dropped) and drain
         the async checkpoint writer, so an aborted run's last submitted
         round is still on disk; a write failure here does not mask the
         exception that ended the run (a normal exit re-raises it)."""
-        self._pending = None
+        self._pending = self._staged_ahead = self._round_ahead = None
         if self._stage_pool is not None:
             self._stage_pool.shutdown(wait=True)
             self._stage_pool = None
@@ -1060,6 +1337,33 @@ class BlockwiseFederatedTrainer(RoundKernel):
         self._flush_ckpt_writer()
         return state, history
 
+    def _read_async(self, tensors):
+        """Start the device-to-host copy of ``tensors`` and return a
+        function that waits for it and gives them as numpy arrays of their
+        own dtypes.  On the card the copy goes into pinned memory behind an
+        event, so work launched after this call (the overlap's pre-launch)
+        does not hold the read back."""
+        if self.device.type != "cuda":
+            host = [t.detach().cpu().numpy() for t in tensors]
+            return lambda: host
+        flat = torch.cat([t.detach().reshape(-1).to(torch.float64)
+                          for t in tensors])
+        buf = torch.empty(flat.shape, dtype=torch.float64, pin_memory=True)
+        buf.copy_(flat, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+
+        def wait():
+            event.synchronize()
+            out, i = [], 0
+            for t in tensors:
+                a = buf[i:i + t.numel()].numpy()
+                out.append(a.astype(torch.empty(0, dtype=t.dtype).numpy()
+                                    .dtype).reshape(tuple(t.shape)))
+                i += t.numel()
+            return out
+        return wait
+
     def _step_round(self, obs, obs_images, state, blockvars, nloop, ci,
                     nadmm, N, history, checkpoint_path, log):
         """One communication round of block ``ci``; returns the state and
@@ -1094,65 +1398,154 @@ class BlockwiseFederatedTrainer(RoundKernel):
         q_start = (int(np.sum(self._quarantine > 0))
                    if cfg.update_guard else 0)
         loss_acc = None
-        stage_s = 0.0
+        stage_s = overlap_s = overlap_dispatch_s = 0.0
         phase_marks = []
-        for nepoch in range(cfg.Nepoch):
+        dispatch0 = self._host_dispatches
+        diag: Dict[str, Any] = {}
+        okf = None
+        self._client_norms = (None, None)
+        comm_ran = algo.communicates and n_comm > 0
+        predispatch = (self._overlap_round and comm_ran
+                       and nadmm + 1 < cfg.Nadmm)
+        # a fused round (cfg.fused_rounds) runs the same epochs and update
+        # as one host call: the round's Nepoch row indices go to the device
+        # up front, its only host-to-device traffic; nothing syncs or reads
+        # the host before the round's reads behind the comm step (blocks
+        # whose optimizer is L-BFGS excepted: the line search reads the
+        # host every step), and the whole call is train time
+        fused = self._use_fused and comm_ran
+        if fused:
             t_stage = time.perf_counter()
-            counter = self._epochs_staged
-            xb, yb, wb = self._stage_epoch(
-                last=(nloop == cfg.Nloop - 1 and ci == self.L - 1
-                      and nadmm == cfg.Nadmm - 1
-                      and nepoch == cfg.Nepoch - 1))
+            rows_dev, counters = self._fused_epoch_rows()
             self._obs_sync(obs)
-            t_staged = time.perf_counter()
-            stage_s += t_staged - t_stage
-            state, losses = self.train_epoch(
-                state, ci, y, z, rho, xb, yb, wb, counter,
-                active=train_m if partial else None, norm=cnorm)
+            stage_s = time.perf_counter() - t_stage
+            self._host_dispatches += 1
+            if obs.enabled:
+                phase_marks.append(("stage", "phase", t_stage,
+                                    t_stage + stage_s))
+        t_train = time.perf_counter()
+        for nepoch in range(cfg.Nepoch):
+            ahead = (self._take_round_ahead((nloop, ci, nadmm))
+                     if nepoch == 0 and self._overlap_round else None)
+            t_stage = time.perf_counter()
+            if ahead is not None:
+                # launched behind the previous round's comm step
+                # (cfg.overlap_round): same inputs, same values
+                state, losses = ahead
+                t_staged = t_stage
+            else:
+                if fused:
+                    counter = counters[nepoch]
+                    xb, yb, wb = self._gather_epoch(rows_dev[nepoch])
+                else:
+                    counter = self._epochs_staged
+                    xb, yb, wb = self._stage_epoch(
+                        last=(nloop == cfg.Nloop - 1 and ci == self.L - 1
+                              and nadmm == cfg.Nadmm - 1
+                              and nepoch == cfg.Nepoch - 1))
+                    self._obs_sync(obs)
+                    self._host_dispatches += 1
+                    stage_s += time.perf_counter() - t_stage
+                t_staged = time.perf_counter()
+                state, losses = self.train_epoch(
+                    state, ci, y, z, rho, xb, yb, wb, counter,
+                    active=train_m if partial else None, norm=cnorm)
             loss_acc = losses if loss_acc is None else loss_acc + losses
             if cfg.be_verbose:
                 # per-client epoch losses (the reference's be_verbose
-                # prints, federated_multi.py:199-200): the only host sync
-                # inside the epoch loop
+                # prints, federated_multi.py:199-200): the only host
+                # sync inside the epoch loop
                 log(f"verbose: block={ci} nadmm={nadmm} epoch={nepoch} "
                     "client_loss=" + np.array2string(losses.cpu().numpy(),
                                                      precision=4))
-            if obs.enabled:
+            if obs.enabled and not fused:
                 self._obs_sync(obs)
-                phase_marks += [("stage", "phase", t_stage, t_staged),
-                                ("train", "phase", t_staged,
-                                 time.perf_counter())]
-        self._sync()
+                if ahead is None:
+                    phase_marks.append(("stage", "phase", t_stage,
+                                        t_staged))
+                phase_marks.append(("train", "phase", t_staged,
+                                    time.perf_counter()))
+        if not fused:
+            self._sync()
         t_comm = time.perf_counter()
-        train_s = t_comm - t_round - stage_s
-        diag: Dict[str, Any] = {}
-        self._client_norms = (None, None)
-        if algo.communicates and n_comm > 0:
+        if comm_ran:
             state, z, y, rho, x0, yhat0, diag, okf = self.comm_round(
                 state, ci, z, y, rho, x0, yhat0, self._comm_mode(nadmm),
-                active=comm_m, corrupt=corrupt, gbound=self._round_gbound())
-            diag = {k: float(v) for k, v in diag.items()}
-            if cfg.update_guard:
-                self._apply_guard_verdicts(diag, okf.cpu().numpy(),
-                                           comm_host)
-        elif algo.communicates:
-            # every client out of the exchange: no collective, z/y/rho
-            # carry over, quarantine still ticks
-            diag = {"n_active": 0.0}
-            if cfg.update_guard:
-                diag.update(guard_trips=0.0, n_ok=0.0)
-                self._quarantine = np.maximum(self._quarantine - 1, 0)
-        self._sync()
+                active=comm_m, corrupt=corrupt,
+                gbound=self._round_gbound())
+            # the reads of the round, queued behind the comm step
+            reads = self._read_async(self._round_values(loss_acc, rho,
+                                                        diag, okf))
+            if self._overlap and not fused:
+                # the comm step runs on the card meanwhile
+                t_ov = time.perf_counter()
+                overlap_s = self._prestage_round()
+                if obs.enabled and overlap_s > 0:
+                    phase_marks.append(("overlap", "phase", t_ov,
+                                        t_ov + overlap_s))
+            if predispatch and not obs.enabled:
+                # before the host waits on this round's reads: the
+                # queue does not drain across the round boundary
+                overlap_dispatch_s = self._predispatch_round(
+                    (nloop, ci, nadmm + 1), state, z, y, rho, cnorm)
+        else:
+            reads = self._read_async(self._round_values(loss_acc, rho,
+                                                        {}, None))
+            if algo.communicates:
+                # every client out of the exchange: no collective,
+                # z/y/rho carry over, quarantine still ticks
+                diag = {"n_active": 0.0}
+                if cfg.update_guard:
+                    diag.update(guard_trips=0.0, n_ok=0.0)
+                    self._quarantine = np.maximum(self._quarantine - 1, 0)
+        if overlap_dispatch_s > 0:
+            # the comm span ends with the round's reads (a sync would
+            # wait for the pre-launched epoch too)
+            reads()
+        else:
+            self._sync()
         t_done = time.perf_counter()
-        comm_s = t_done - t_comm
-        if obs.enabled and algo.communicates:
-            phase_marks.append(("comm", "phase", t_comm, t_done))
-        loss_host = loss_acc.cpu().numpy()
+        if fused:
+            train_s, comm_s = t_done - t_train, 0.0
+            if obs.enabled:
+                phase_marks.append(("train", "phase", t_train, t_done))
+        else:
+            train_s, comm_s = t_comm - t_round - stage_s, t_done - t_comm
+            if obs.enabled and algo.communicates:
+                phase_marks.append(("comm", "phase", t_comm, t_done))
+        if predispatch and obs.enabled:
+            # with a recorder writing, the pre-launch follows the comm
+            # span, which keeps measuring the comm step alone
+            t_ov = time.perf_counter()
+            overlap_dispatch_s = self._predispatch_round(
+                (nloop, ci, nadmm + 1), state, z, y, rho, cnorm)
+            if overlap_dispatch_s > 0:
+                phase_marks.append(("overlap_dispatch", "phase", t_ov,
+                                    t_ov + overlap_dispatch_s))
+        vals = reads()
+        loss_host, rho_host = vals[0], float(vals[1])
+        if comm_ran:
+            diag = {k: float(v) for k, v in zip(diag, vals[2:])}
+            if cfg.update_guard:
+                self._apply_guard_verdicts(diag, vals[2 + len(diag)],
+                                           comm_host)
+        cl_nrm, cl_dist = (vals[-2], vals[-1]) if self._client_probe \
+            and self._client_norms[0] is not None else (None, None)
         rec = dict(nloop=nloop, block=ci, nadmm=nadmm, N=N,
-                   loss=float(np.sum(loss_host)), rho=float(rho),
+                   loss=float(np.sum(loss_host)), rho=rho_host,
                    round_seconds=time.perf_counter() - t_round,
                    stage_seconds=stage_s, train_seconds=train_s,
                    comm_seconds=comm_s, **fcounts, **diag)
+        if self._overlap:
+            # host seconds of the staging look-ahead behind the comm step
+            # (0.0 on a fused round and when there was nothing to stage)
+            rec["overlap_seconds"] = overlap_s
+        if self._overlap_round:
+            # host seconds of the next round's pre-launched epoch (0.0 on
+            # the last round of a block)
+            rec["overlap_dispatch_seconds"] = overlap_dispatch_s
+        # local-training calls this round: Nepoch, or 1 when fused
+        rec["host_dispatches"] = self._host_dispatches - dispatch0
         rec["kernel_launches"] = {
             k: v - launches0[k] for k, v in _launch_counts().items()}
         if cfg.update_guard and algo.communicates:
@@ -1187,8 +1580,6 @@ class BlockwiseFederatedTrainer(RoundKernel):
         if algo.communicates:
             extra_fields["bytes_dense"] = 4 * N * int(
                 diag.get("n_active", K))
-        cl_nrm, cl_dist = (None if t is None else t.cpu().numpy()
-                           for t in self._client_norms)
         self._emit_round_obs(
             obs, rec, round_index=len(history) - 1, t_round=t_round,
             images=obs_images, extra_fields=extra_fields, N=N,
@@ -1197,13 +1588,24 @@ class BlockwiseFederatedTrainer(RoundKernel):
             checkpoint_path=checkpoint_path, state=state,
             blockvars=blockvars, nxt=nxt, history=history, log=log)
         blk = self.block_ids[ci]
-        msg = (f"block=[{blk[0]},{blk[1]}]({N},{float(rho):f}) "
+        msg = (f"block=[{blk[0]},{blk[1]}]({N},{rho_host:f}) "
                f"round={nadmm}/{nloop} "
                + " ".join(f"{k}={v:e}" for k, v in diag.items()))
         if cfg.check_results:
             msg += " acc=" + np.array2string(rec["accuracy"], precision=2)
         log(msg)
         return (state,) + blockvars
+
+    def _round_values(self, loss_acc, rho, diag, okf) -> list:
+        """The tensors a round reads to the host, in :meth:`_step_round`'s
+        order: the [K] losses, rho, the diagnostics, the guard verdicts
+        (guard on) and the client record's two [K] norms (record on)."""
+        vals = [loss_acc, rho, *diag.values()]
+        if okf is not None:
+            vals.append(okf)
+        if self._client_norms[0] is not None:
+            vals.extend(self._client_norms)
+        return vals
 
     def run_independent(self, state: Optional[ClientState] = None,
                         log: Callable[[str], None] = print):
@@ -1239,9 +1641,11 @@ class BlockwiseFederatedTrainer(RoundKernel):
             xb, yb, wb = self._stage_epoch(last=epoch == cfg.Nepoch - 1)
             state, losses = self.train_epoch(state, None, y, z, rho,
                                              xb, yb, wb, counter)
+            self._host_dispatches += 1
             loss_host = losses.cpu().numpy()
             rec = dict(epoch=epoch, loss=float(np.sum(loss_host)),
-                       epoch_seconds=time.perf_counter() - t_epoch)
+                       epoch_seconds=time.perf_counter() - t_epoch,
+                       host_dispatches=1)
             if cfg.check_results:
                 rec["accuracy"] = self.evaluate(state)
                 log(f"Epoch {epoch} acc="

@@ -26,7 +26,8 @@ FILES4, SAPS4 = ["a.h5", "b.h5", "c.h5", "d.h5"], ["0", "1", "0", "1"]
 SILENT = lambda m: None
 
 #: the round fields that are counts: equal on both sides, exactly
-COUNTS = ("nloop", "model", "block", "nadmm", "N", "bytes_on_wire",
+COUNTS = ("nloop", "model", "block", "nadmm", "N", "host_dispatches",
+          "bytes_on_wire",
           "n_active", "guard_trips", "n_ok", "quarantined", "fault_dropped",
           "fault_straggled", "fault_corrupted", "async_arrived",
           "admission_rejected", "buffer_depth", "staleness_hist",

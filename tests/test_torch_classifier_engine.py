@@ -51,7 +51,7 @@ from federated_pytorch_test_tpu.train import (
     FederatedConfig as JConfig,
 )
 from federated_pytorch_test_tpu_torch.data.cifar10 import FederatedCifar10 as TData
-from federated_pytorch_test_tpu_torch.drivers import consensus_multi
+from federated_pytorch_test_tpu_torch.drivers import common, consensus_multi
 from federated_pytorch_test_tpu_torch.models import base as tbase
 from federated_pytorch_test_tpu_torch.models.base import Classifier
 from federated_pytorch_test_tpu_torch.models.resnet import (
@@ -139,7 +139,7 @@ def runs(request):
 
 def test_round_structure_matches(runs):
     key = lambda r: (r["nloop"], r["block"], r["nadmm"], r["N"],
-                     r["bytes_on_wire"], r["rho"])
+                     r["bytes_on_wire"], r["rho"], r["host_dispatches"])
     assert [key(r) for r in runs["thist"]] == [key(r) for r in runs["jhist"]]
     assert len(runs["thist"]) == 4
 
@@ -263,6 +263,8 @@ def test_bb_rho_update_matches_jax(scale):
 
 TINY = ["--K", "4", "--model", "net", "--Nloop", "1", "--Nadmm", "1",
         "--n-train", "16", "--n-test", "16", "--default-batch", "16"]
+KNOBS = ("device_data", "fused_rounds", "overlap_staging", "overlap_round",
+         "sharded_update")
 
 
 def test_driver_runs_on_cpu_when_asked():
@@ -292,17 +294,31 @@ def test_driver_defaults_are_the_reference_ones():
                           JD.biased_input, "cuda")
 
 
-@pytest.mark.parametrize("argv,match", [
-    (["--sharded-update"], "not ported"),
-    (["--device-data"], "not ported"),
-    (["--fused-rounds"], "not ported"),
-    (["--overlap-round"], "not ported"),
+@pytest.mark.parametrize("argv,field", [
+    (["--sharded-update"], "sharded_update"),
+    (["--device-data"], "device_data"),
+    (["--fused-rounds"], "fused_rounds"),
+    (["--overlap-round"], "overlap_round"),
 ])
-def test_unported_knobs_are_refused(argv, match, capsys):
-    with pytest.raises(SystemExit):
-        consensus_multi.main(["--device", "cpu", *TINY, *argv],
-                             log=lambda m: None)
-    assert match in capsys.readouterr().err
+def test_unported_knobs_are_refused(argv, field):
+    """The throughput knobs, which the drivers once refused by name, are
+    parsed as the JAX drivers parse them and reach the config and the
+    engine: the sharded update, the shards on the device, the fused round,
+    the round overlap."""
+    cfg, args = common.parse_config(consensus_multi.DEFAULTS,
+                                    "consensus_multi",
+                                    ["--device", "cpu", *TINY, *argv])
+    assert getattr(cfg, field) is True
+    assert [getattr(cfg, f) for f in KNOBS if f != field] == \
+        [getattr(consensus_multi.DEFAULTS, f) for f in KNOBS if f != field]
+    t = common.make_trainer(cfg, talg.AdmmConsensus(), args.n_train,
+                            args.n_test)
+    engine = {"sharded_update": t.cfg.sharded_update and t.mean_fn is None,
+              "device_data": t._dev_x is not None,
+              "fused_rounds": t._use_fused,
+              "overlap_round": t._overlap_round}
+    assert engine[field]
+    t.close()
 
 
 def test_engine_refuses_lbfgs_and_bad_mesh():

@@ -59,8 +59,11 @@ def independent():
 def test_independent_records_match(independent):
     j, t = independent["jhist"], independent["thist"]
     assert [r["epoch"] for r in t] == [r["epoch"] for r in j] == [0, 1]
-    assert all(set(r) == {"epoch", "loss", "epoch_seconds", "accuracy"}
-               for r in t)
+    assert all(set(r) == {"epoch", "loss", "epoch_seconds", "accuracy",
+                          "host_dispatches"} for r in t)
+    # one local-epoch call an epoch, as the JAX records count it
+    assert [r["host_dispatches"] for r in t] == \
+        [r["host_dispatches"] for r in j] == [1, 1]
     np.testing.assert_allclose([r["loss"] for r in t], [r["loss"] for r in j],
                                rtol=1e-4)
     for a, b in zip(t, j):

@@ -162,12 +162,13 @@ ASYNC = dict(Nadmm=3, async_rounds=True, max_staleness=1, staleness_alpha=0.5,
 NAN = dict(Nadmm=3, participation=0.75,
            fault_spec="corrupt=0.3,mode=nan,seed=4")
 #: every record field that is a count of the round's schedule
-COUNTS = ("nloop", "block", "nadmm", "N", "n_active", "bytes_on_wire",
+COUNTS = ("nloop", "block", "nadmm", "N", "host_dispatches", "n_active",
+          "bytes_on_wire",
           "fault_dropped", "fault_straggled", "fault_corrupted",
           "async_arrived", "admission_rejected", "buffer_depth",
           "staleness_hist", "members_active", "joined", "left")
 #: the JAX records' telemetry the port does not keep
-JAX_ONLY = {"sync_seconds", "host_dispatches", "compile_seconds", "cache_hit",
+JAX_ONLY = {"sync_seconds", "compile_seconds", "cache_hit",
             "flops_round", "hlo_bytes_accessed"}
 
 
@@ -206,7 +207,7 @@ def nan_pair():
 
 
 def test_nan_without_guard_poisons_z_alike(nan_pair):
-    check_counts(nan_pair, COUNTS[:9])
+    check_counts(nan_pair, COUNTS[:10])
     jh, th = nan_pair["jhist"], nan_pair["thist"]
     assert any(r["fault_corrupted"] for r in th)
     for j, t in zip(jh, th):

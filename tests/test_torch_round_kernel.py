@@ -63,10 +63,11 @@ GUARD = dict(Nadmm=3, participation=0.5, update_guard=True,
 KRUM = dict(Nadmm=3, robust_agg="krum", robust_chunked=True, num_devices=2,
             trim_frac=0.25, fault_spec="corrupt=0.3,mode=innerprod,scale=4,"
                                        "seed=7")
-COUNTS = ("nloop", "block", "nadmm", "N", "n_active", "bytes_on_wire",
+COUNTS = ("nloop", "block", "nadmm", "N", "host_dispatches", "n_active",
+          "bytes_on_wire",
           "fault_dropped", "fault_straggled", "fault_corrupted",
           "quarantined", "guard_trips", "n_ok")
-JAX_ONLY = {"sync_seconds", "host_dispatches", "compile_seconds", "cache_hit",
+JAX_ONLY = {"sync_seconds", "compile_seconds", "cache_hit",
             "flops_round", "hlo_bytes_accessed"}
 
 

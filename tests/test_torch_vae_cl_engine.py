@@ -98,6 +98,8 @@ def test_vae_cl_three_blocks_track_jax(vae_cl):
     jh, th = vae_cl["jhist"], vae_cl["thist"]
     assert [r["block"] for r in th] == [0, 1, 2]
     assert [r["N"] for r in th] == [r["N"] for r in jh]
+    assert [r["host_dispatches"] for r in th] == \
+        [r["host_dispatches"] for r in jh]
     for j, t in zip(jh, th):
         assert np.isfinite(t["loss"])
         np.testing.assert_allclose(t["loss"], j["loss"], rtol=1e-4)

@@ -44,6 +44,8 @@ def test_vae_sweeps_every_layer(vae):
     assert len(th) == len(jh) == 12
     assert [r["block"] for r in th] == list(range(12))
     assert [r["N"] for r in th] == [r["N"] for r in jh]
+    assert [r["host_dispatches"] for r in th] == \
+        [r["host_dispatches"] for r in jh] == [1] * 12
     assert sum(r["N"] for r in th) == sum(
         np.asarray(a[0]).size for a in jax.tree.leaves(vae["p0"]))
 
