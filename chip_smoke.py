@@ -330,14 +330,48 @@ which stops the script with a non-zero exit if it fails:
     ``SHARDED_RTOL``/``SHARDED_ATOL``, and whether every parameter is bit
     for bit printed.  The child runs one intra-op thread and prints its
     start-up and runs' seconds.  Printed only: each run's round times.
+33. slice 11, the elastic federation at full width, in one deterministic
+    child (phase 32's mechanism) started after phase 11 (it needs the
+    kernels; phases 3, 4 and 11 time them alone) and collected after
+    phase 32, with every kernel's launch count set to 0 at its start and
+    read at its end (all of its runs are main-path runs): ResNet18 in
+    float32, K=10, batch 128, 1,280 synthetic images per client, the sweep
+    cut to its first block (``ELASTIC_BASE``).  (a) dense ADMM at
+    ``--num-devices 5``, Nadmm 2, killed after round 0 (its checkpoint on
+    disk) and resumed three ways from copies of it: at D=5 with
+    ``--elastic-resume``, every record and tensor bit for bit the
+    uninterrupted D=5 run; at D=2 with the flag, every number of every
+    record and every parameter and statistic within ``ELASTIC_RTOL``,
+    ``ELASTIC_ATOL`` of it; at D=2 without the flag, a
+    ``CheckpointGeometryError`` naming ``--elastic-resume``.  (b) ``--Nadmm
+    2 --compress q8 --fused-collective --num-devices 5 --fault-spec
+    preempt=0.5,seed=S --elastic-resume --max-restarts 2`` under a JSONL
+    recorder, S the first seed whose draw fires in round 1 (printed): the
+    run completes, its trainers are built on [5, 2] meshes and its run
+    headers say so, exactly one ``reshape`` record 5 -> 2, B1 and B2
+    launched in both rounds (one a segment), and the port's
+    ``control.replay`` exits 0 on the stream and 1 with the record's
+    ``to_value`` tampered and with it dropped;
+34. slice 11, the sanitizer at full width, in the same child: (a) chunked
+    krum at D=2 (B3), one round (``SANITIZE_ARGV``), with ``--sanitize``
+    and without: bit for bit (a sha256 of every tensor, every number of
+    the record), B3 launched under the sanitizer; (b) the same with
+    ``--fault-spec corrupt=1.0,mode=nan,clients=3,seed=1``: with
+    ``--sanitize`` a ``SanitizerError`` naming the comm step of block 0,
+    round 0 and a NaN; without, the round finishes; (c)
+    ``drivers.federated_cpc`` at its defaults, its first round (one round
+    of the encoder), without ``--sanitize``, with it and without again:
+    the sub-models and z bit for bit, B4 and B5 launched under the
+    sanitizer.  Printed only: a round's seconds with the sanitizer and
+    without (its cost; phase 34's runs share the card with phases 12-32).
 
 Phases 15-21, 24 and 25 run no hand-written kernel (top-k, the
 scatter-add, the L-BFGS update and the VAEs are stock PyTorch, as in the
 JAX package they are XLA; phase 24's q8 exchange is not fused); the
-kernel line's launches are those of phases 5, 26 and 27 (B4, B5; phase
-27's counted in its children), phases 8, 22, 26, 29 and 32 (B3) and
-phases 12, 23, 28, 30 and 32 (B1, B2; phase 32's counted in its
-children); phase 31 runs none.  Every driver phase
+kernel line's launches are those of phases 5, 26, 27 and 34 (B4, B5;
+phases 27 and 34 counted in their children), phases 8, 22, 26, 29, 32
+and 34 (B3) and phases 12, 23, 28, 30, 32 and 33 (B1, B2; phases 32-33
+counted in their children); phase 31 runs none.  Every driver phase
 before 26 passes ``--obs-sinks none``.
 
 The line before the last is the per-kernel JSON record (with each
@@ -626,6 +660,25 @@ KNOBS_CASES = {
 #: the sharded update's band against the replicated mean (the JAX
 #: package's declared rtol)
 SHARDED_RTOL, SHARDED_ATOL = 2e-5, 1e-6
+#: phases 33-34 (slice 11): ResNet18 in float32, K=10, batch 128, 1,280
+#: synthetic images per client, the sweep cut to its first block (the
+#: stem), in one deterministic child started after phase 11
+ELASTIC_BASE = [
+    "--device", "cuda", "--model", "resnet18", "--K", "10",
+    "--default-batch", "128", "--Nloop", "1", "--n-train", "1280",
+    "--n-test", "1000", "--no-check-results", "--no-save-model"]
+#: phase 33: the elastic resume's band when the mesh changes (the JAX
+#: package's contract, tests/test_resume.py); the supervised preemption's
+#: probability (the seed is picked so that it fires in round 1)
+ELASTIC_RTOL, ELASTIC_ATOL = 1e-4, 1e-6
+ELASTIC_PREEMPT_P = 0.5
+#: phase 34: chunked krum at D=2, one round; the NaN attack on client 3
+SANITIZE_ARGV = ["--Nadmm", "1", "--robust-agg", "krum", "--robust-chunked",
+                 "--num-devices", "2", "--obs-sinks", "none"]
+SANITIZE_NAN = ["--fault-spec", "corrupt=1.0,mode=nan,clients=3,seed=1"]
+#: phase 34 (c): the CPC at its defaults, the rotation's first round
+SANITIZE_CPC_ARGV = ["--device", "cuda", "--Nadmm", "1", "--no-save-model",
+                     "--obs-sinks", "none"]
 STREAMS_DIR = os.path.join(ROOT, "build", "streams")
 KEPT_STREAMS: dict = {}
 #: phase 31's full-batch L-BFGS: a stiff quadratic 0.5 * sum(h * x^2) over
@@ -2824,6 +2877,371 @@ def knobs_child_result(trainer, state) -> dict:
     return {"digest": h.hexdigest(), "block": block.cpu().numpy()}
 
 
+class _Killed(Exception):
+    """Phase 33 (a)'s kill after round 0's checkpoint."""
+
+
+def elastic_preempt_seed() -> int:
+    """Phase 33 (b): the first fault seed whose preemption draw fires in
+    round 1, the stem block's second round (round 0 never fires: nothing
+    is checkpointed yet)."""
+    from federated_pytorch_test_tpu_torch.train.faults import FaultSpec
+
+    for seed in range(1000):
+        if FaultSpec.parse(f"preempt={ELASTIC_PREEMPT_P},seed={seed}"
+                           ).round_preempt(0, 0, 1):
+            return seed
+    fail("no fault seed preempts round 1")
+
+
+def elastic_child_main(spec_json: str) -> None:
+    """Phases 33 and 34's child: every case in turn in one deterministic
+    process (cuBLAS workspace and ``torch.use_deterministic_algorithms``
+    set before the first handle, one intra-op thread), each driver run
+    with the sweep cut to its first block (the CPC to its first round).
+    Checks in the process (the states stay on the card) and pickles its
+    log lines, the first failure (None when every check held) and the
+    kernels' launches over all its runs, every one a run of the main
+    path."""
+    import hashlib
+    import inspect
+    import pickle
+    import shutil
+    import traceback
+
+    t_child = time.perf_counter()
+    spec = json.loads(spec_json)
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    import torch
+
+    torch.use_deterministic_algorithms(True)
+    torch.set_num_threads(1)
+    sys.path.insert(0, ROOT)
+    from federated_pytorch_test_tpu_torch.analysis.sanitize import (
+        SanitizerError,
+    )
+    from federated_pytorch_test_tpu_torch.control.replay import main as replay
+    from federated_pytorch_test_tpu_torch.drivers import (
+        common,
+        consensus_multi,
+        federated_cpc,
+    )
+    from federated_pytorch_test_tpu_torch.obs.report import read_records
+    from federated_pytorch_test_tpu_torch.ops import gram, infonce, quant
+    from federated_pytorch_test_tpu_torch.train import cpc_engine, engine
+    from federated_pytorch_test_tpu_torch.utils.checkpoint import (
+        CheckpointGeometryError,
+    )
+    from federated_pytorch_test_tpu_torch.utils.tree import leaves
+
+    work = spec["dir"]
+    lines = []
+    say = lines.append
+    tables = (quant.LAUNCHES, gram.LAUNCHES, infonce.LAUNCHES)
+    for table in tables:
+        for k in table:
+            table[k] = 0
+    built = []
+    make = common.make_trainer
+
+    def first_block(c, *a, **kw):
+        t = make(c, *a, **kw)
+        t.L = 1
+        built.append(c.num_devices)
+        return t
+    common.make_trainer = first_block
+    # the restore's seconds (the slot read and its tensors on the card;
+    # the checksum is verified before it)
+    restores = []
+    restore = engine.BlockwiseFederatedTrainer._restore_midrun
+
+    def timed_restore(self, path):
+        t0 = time.perf_counter()
+        out = restore(self, path)
+        torch.cuda.synchronize()
+        restores.append(time.perf_counter() - t0)
+        return out
+    engine.BlockwiseFederatedTrainer._restore_midrun = timed_restore
+
+    def check(ok, msg):
+        if not ok:
+            raise AssertionError(msg)
+
+    def run(argv, log=lambda m: None):
+        t0 = time.perf_counter()
+        trainer, state, history = consensus_multi.main(argv, log=log)
+        return trainer, state, history, time.perf_counter() - t0
+
+    def digest(tensors):
+        h = hashlib.sha256()
+        for t in tensors:
+            h.update(t.detach().cpu().contiguous().numpy().tobytes())
+        return h.hexdigest()
+
+    def numbers(history):
+        return [{k: v for k, v in r.items() if isinstance(v, (int, float))
+                 and not k.endswith("_seconds")} for r in history]
+
+    def worst(a, b):
+        """max over the tensors of |a - b| - (atol + rtol |b|), and of
+        |a - b| (<= 0 in the first: within the elastic band)."""
+        over, gap = -1.0, 0.0
+        for x, y in zip(a, b):
+            d = (x - y).abs()
+            gap = max(gap, float(d.max()))
+            over = max(over, float((d - ELASTIC_ATOL
+                                    - ELASTIC_RTOL * y.abs()).max()))
+        return over, gap
+
+    result = {"startup_seconds": time.perf_counter() - t_child}
+    try:
+        # -- phase 33 (a): kill after round 0 at D=5, resume three ways
+        t33 = time.perf_counter()
+        base = [*ELASTIC_BASE, "--Nadmm", "2", "--obs-sinks", "none"]
+        _, s_full, h_full, sec = run([*base, "--num-devices", "5"])
+        full = leaves((s_full.params, s_full.batch_stats))
+        say(f"elastic (a): uninterrupted D=5 run, {len(h_full)} rounds in "
+            f"{sec:.2f} s")
+        ck = os.path.join(work, "a")
+
+        def killer(msg):
+            if "round=0/" in msg:
+                raise _Killed
+
+        try:
+            run([*base, "--num-devices", "5", "--midrun-checkpoint",
+                 "--checkpoint-dir", ck], log=killer)
+            check(False, "phase 33 (a): the run was not killed")
+        except _Killed:
+            pass
+        for tag in ("55", "52", "52n"):
+            shutil.copytree(ck, ck + tag)
+
+        def resume(tag, d, *flag):
+            return run([*base, "--num-devices", str(d), "--midrun-checkpoint",
+                        "--load-model", "--checkpoint-dir", ck + tag, *flag])
+
+        t55, s55, h55, sec = resume("55", 5, "--elastic-resume")
+        same = (t55.D == 5 and numbers(h55) == numbers(h_full)
+                and digest(leaves((s55.params, s55.batch_stats)))
+                == digest(full))
+        say(f"elastic (a): resumed at D=5 with --elastic-resume in "
+            f"{sec:.2f} s (restore {restores[-1]:.3f} s): every record and "
+            f"tensor bit for bit the uninterrupted run: {same}")
+        check(same, "phase 33 (a): the D=5 resume is not bit for bit")
+        del s55
+        t52, s52, h52, sec = resume("52", 2, "--elastic-resume")
+        check(t52.D == 2, f"phase 33 (a): resumed on D={t52.D}, not 2")
+        n52, nfull = numbers(h52), numbers(h_full)
+        check(len(n52) == len(nfull) == 2
+              and all(a.keys() == b.keys() for a, b in zip(n52, nfull)),
+              "phase 33 (a): the D=2 resume's records differ in keys")
+        rec_over = max(abs(a[k] - b[k]) - ELASTIC_ATOL
+                       - ELASTIC_RTOL * abs(b[k])
+                       for a, b in zip(n52, nfull) for k in a)
+        over, gap = worst(leaves((s52.params, s52.batch_stats)), full)
+        say(f"elastic (a): resumed at D=2 with --elastic-resume in "
+            f"{sec:.2f} s (restore {restores[-1]:.3f} s): records {[(r['loss'], r['dual_residual']) for r in h52]} "
+            f"vs {[(r['loss'], r['dual_residual']) for r in h_full]}; "
+            f"parameters max |diff| {gap:.3e}; within rtol {ELASTIC_RTOL}, "
+            f"atol {ELASTIC_ATOL}: records {rec_over <= 0}, tensors "
+            f"{over <= 0}")
+        check(rec_over <= 0 and over <= 0,
+              "phase 33 (a): the D=2 resume leaves the elastic band")
+        del s52, s_full, full
+        try:
+            resume("52n", 2)
+            check(False, "phase 33 (a): D=2 without --elastic-resume ran")
+        except CheckpointGeometryError as e:
+            check("--elastic-resume" in str(e),
+                  f"phase 33 (a): the geometry error does not name the "
+                  f"flag: {e}")
+            say(f"elastic (a): D=2 without the flag: "
+                f"CheckpointGeometryError: {e}")
+        # -- phase 33 (b): the supervised preemption under q8 fused, D=5
+        seed = elastic_preempt_seed()
+        obs_dir = os.path.join(work, "b", "obs")
+        built.clear()
+        trainer, _, hist, sec = run([
+            *ELASTIC_BASE, "--Nadmm", "2", "--compress", "q8",
+            "--fused-collective", "--num-devices", "5", "--fault-spec",
+            f"preempt={ELASTIC_PREEMPT_P},seed={seed}", "--elastic-resume",
+            "--max-restarts", "2", "--restart-backoff", "0", "--obs-sinks",
+            "jsonl", "--obs-dir", obs_dir, "--checkpoint-dir",
+            os.path.join(work, "b")])
+        path = os.path.join(obs_dir, "consensus_multi.jsonl")
+        recs = read_records(path, validate=True)
+        reshapes = [(r["from_value"], r["to_value"]) for r in recs
+                    if r["event"] == "control"
+                    and r["intervention"] == "reshape"]
+        meshes = [r["mesh_shape"]["clients"] for r in recs
+                  if r["event"] == "run_header"]
+        kl = [r["kernel_launches"] for r in hist]
+        say(f"elastic (b): preempt={ELASTIC_PREEMPT_P},seed={seed} fires in "
+            f"round 1; {len(hist)} rounds in {sec:.2f} s, trainers built on "
+            f"{built}, run headers' meshes {meshes}, reshape records "
+            f"{reshapes}, launches a round {kl}")
+        check(len(hist) == 2 and built == [5, 2] and meshes == [5, 2]
+              and trainer.D == 2 and reshapes == [(5, 2)],
+              "phase 33 (b): the run did not reshape 5 -> 2 once")
+        check(all(k["quantize_chunks"] >= 1 and k["dequant_add"] >= 1
+                  for k in kl),
+              "phase 33 (b): B1/B2 not launched in both segments")
+        raw = open(path).read().splitlines()
+        tampered, dropped = path + ".tampered", path + ".dropped"
+        with open(tampered, "w") as f:
+            for line in raw:
+                r = json.loads(line)
+                if r.get("intervention") == "reshape":
+                    r["to_value"] = 3
+                f.write(json.dumps(r) + "\n")
+        with open(dropped, "w") as f:
+            for line in raw:
+                if json.loads(line).get("intervention") != "reshape":
+                    f.write(line + "\n")
+        codes = [replay([p]) for p in (path, tampered, dropped)]
+        say(f"elastic (b): control.replay exits {codes} on the stream, the "
+            "reshape record tampered and dropped")
+        check(codes == [0, 1, 1], "phase 33 (b): replay exits wrong")
+        result["seconds_33"] = time.perf_counter() - t33
+        # -- phase 34 (a)/(b): chunked krum at D=2, sanitized and not
+        t34 = time.perf_counter()
+        krum = [*ELASTIC_BASE, *SANITIZE_ARGV]
+        _, s_off, h_off, sec_off = run(krum)
+        _, s_on, h_on, sec_on = run([*krum, "--sanitize"])
+        same = (numbers(h_on) == numbers(h_off)
+                and digest(leaves((s_on.params, s_on.batch_stats)))
+                == digest(leaves((s_off.params, s_off.batch_stats))))
+        say(f"sanitize (a): chunked krum at D=2, one round: run {sec_off:.2f}"
+            f" s off, {sec_on:.2f} s on; round_seconds "
+            f"{h_off[0]['round_seconds']:.3f} off, "
+            f"{h_on[0]['round_seconds']:.3f} on (the sanitizer's cost); "
+            f"gram launches {h_on[0]['kernel_launches']['gram']} on; "
+            f"bit for bit: {same}")
+        check(same, "phase 34 (a): the sanitized run is not bit for bit")
+        check(h_on[0]["kernel_launches"]["gram"] >= 1,
+              "phase 34 (a): B3 not launched under the sanitizer")
+        del s_on, s_off
+        try:
+            run([*krum, *SANITIZE_NAN, "--sanitize"])
+            check(False, "phase 34 (b): the NaN attack did not raise")
+        except SanitizerError as e:
+            say(f"sanitize (b): SanitizerError: {e}")
+            check(str(e).startswith("comm step (block 0, round 0): nan"),
+                  f"phase 34 (b): raised elsewhere: {e}")
+        _, _, h_nan, _ = run([*krum, *SANITIZE_NAN])
+        say(f"sanitize (b): without --sanitize the run goes on: "
+            f"{len(h_nan)} round, loss {h_nan[0]['loss']}")
+        check(len(h_nan) == 1, "phase 34 (b): the unsanitized run stopped")
+        # -- phase 34 (c): one CPC round, sanitized and not
+        step = cpc_engine.CPCTrainer._step_round
+        got = {}
+
+        class OneRound(Exception):
+            pass
+
+        def one_round(self, *a):
+            step(self, *a)
+            args = inspect.signature(step).bind(self, *a).arguments
+            state, z, _ = args["box"]
+            got["digest"] = digest(leaves(state) + [z])
+            got["record"] = args["history"][-1]
+            raise OneRound
+
+        cpc_engine.CPCTrainer._step_round = one_round
+        cpc = []
+        try:
+            # off, on, off: the first run also warms the CPC's kernels up
+            for on in (False, True, False):
+                before = dict(infonce.LAUNCHES)
+                try:
+                    federated_cpc.main(
+                        [*SANITIZE_CPC_ARGV, *(["--sanitize"] if on else [])],
+                        log=lambda m: None)
+                    check(False, "phase 34 (c): the round did not end")
+                except OneRound:
+                    pass
+                cpc.append(dict(got, launches={
+                    k: infonce.LAUNCHES[k] - before[k] for k in before}))
+        finally:
+            cpc_engine.CPCTrainer._step_round = step
+        off, on, off2 = cpc
+        same = all(r["digest"] == on["digest"]
+                   and numbers([r["record"]]) == numbers([on["record"]])
+                   for r in (off, off2))
+        say(f"sanitize (c): one CPC round ({on['record']['model']} block "
+            f"{on['record']['block']}): round_seconds off "
+            f"{off['record']['round_seconds']:.3f}, on "
+            f"{on['record']['round_seconds']:.3f}, off again "
+            f"{off2['record']['round_seconds']:.3f} (the sanitizer's cost); "
+            f"launches on {on['launches']}; bit for bit: {same}")
+        check(same, "phase 34 (c): the sanitized CPC round is not bit for "
+                    "bit")
+        check(min(on["launches"].values()) >= 1,
+              "phase 34 (c): B4/B5 not launched under the sanitizer")
+        result["seconds_34"] = time.perf_counter() - t34
+        result["error"] = None
+    except Exception as e:          # the parent prints it and fails
+        result["error"] = f"{type(e).__name__}: {e}"
+        result["traceback"] = traceback.format_exc()
+    result["lines"] = lines
+    result["launches"] = {k: v for table in tables for k, v in table.items()}
+    with open(os.path.join(work, "elastic.pkl"), "wb") as f:
+        pickle.dump(result, f)
+
+
+def start_elastic():
+    """Phases 33-34's start: one deterministic child (phase 32's
+    mechanism), started after phase 11 so that it runs beside phases
+    12-32 and not beside the kernels' timing; :func:`finish_elastic`
+    collects it."""
+    import tempfile
+
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="elastic-",
+                            dir=os.path.join(ROOT, "build"))
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--phase33-child",
+         json.dumps({"dir": work})],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return proc, work, time.perf_counter()
+
+
+def finish_elastic(started) -> dict:
+    """Phases 33 and 34 (the child of :func:`start_elastic`): its lines
+    printed, its first failure failing the script.  Returns the launches
+    of every kernel in the child's runs."""
+    import pickle
+    import shutil
+
+    proc, work, t0 = started
+    t_wait = time.perf_counter()
+    try:
+        out, err = proc.communicate(timeout=900)
+        if proc.returncode != 0:
+            log(out[-4000:])
+            log(err[-4000:])
+            fail(f"phases 33-34's child exited {proc.returncode}")
+        with open(os.path.join(work, "elastic.pkl"), "rb") as f:
+            res = pickle.load(f)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        shutil.rmtree(work, ignore_errors=True)
+    for line in res["lines"]:
+        log(line)
+    if res["error"] is not None:
+        log(res["traceback"][-4000:])
+        fail(f"phases 33-34: {res['error']}")
+    log(f"phases 33-34: child start-up {res['startup_seconds']:.2f} s, "
+        f"phase 33 {res['seconds_33']:.2f} s, phase 34 "
+        f"{res['seconds_34']:.2f} s; {time.perf_counter() - t0:.2f} s from "
+        f"its start, {time.perf_counter() - t_wait:.2f} s of it after phase "
+        f"32; launches {res['launches']}")
+    return res["launches"]
+
+
 def run_preempt_resume() -> None:
     """Phase 25: preemption and resume in child processes, bit for bit."""
     import pickle
@@ -3884,6 +4302,9 @@ def main() -> None:
     del trainer2, state2, stack
     quant_err, quant_timing, quant_device, quant_extra = check_quant(dev, card)
     extra.update(quant_extra)
+    # phases 33-34's child needs the kernels; it starts after the kernels'
+    # timing (phases 3, 4, 11) and runs beside phases 12-32
+    elastic_child = start_elastic()
     quant_launches, stack3, trainer3, state3 = run_slice3(dev)
     check_fused_path_data(stack3, trainer3)
     profile_comm_step(trainer3, state3)
@@ -3915,6 +4336,12 @@ def main() -> None:
     gram_launches += knobs.pop("gram")
     for k, v in knobs.items():
         quant_launches[k] += v
+    elastic = finish_elastic(elastic_child)
+    for k in launches:
+        launches[k] += elastic[k]
+    gram_launches += elastic["gram"]
+    for k in quant_launches:
+        quant_launches[k] += elastic[k]
     log(f"summary: krum's selection on the raw y + rho*x stack, kernel vs "
         f"gram_plain: {raw_krum}")
 
@@ -3948,7 +4375,7 @@ def main() -> None:
             "ms": k_ms, "device_ms": quant_device[name], "plain_ms": p_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": l_ms,
             **extra[name]})
-    log(f"chip_smoke: phases 1-32 in {time.perf_counter() - t_start:.1f} s")
+    log(f"chip_smoke: phases 1-34 in {time.perf_counter() - t_start:.1f} s")
     log(card)                        # again here, where an output tail keeps it
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
@@ -3961,5 +4388,7 @@ if __name__ == "__main__":
         child_main(sys.argv[2])
     elif sys.argv[1:2] == ["--phase32-child"]:
         knobs_child_main(sys.argv[2])
+    elif sys.argv[1:2] == ["--phase33-child"]:
+        elastic_child_main(sys.argv[2])
     else:
         main()

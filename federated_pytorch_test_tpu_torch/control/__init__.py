@@ -1,7 +1,7 @@
 """Closed-loop federation control plane (default OFF).
 
-Port of ``federated_pytorch_test_tpu/control/`` (without the elastic
-``reshape`` rung, which waits for the multi-card mesh).
+Port of ``federated_pytorch_test_tpu/control/``, the elastic ``reshape``
+rung over the one card's logical client mesh included.
 
 Three cooperating parts (README "Control plane"):
 

@@ -2,8 +2,7 @@
 
 Port of ``federated_pytorch_test_tpu/control/replay.py`` with the checks
 of what the port emits: policy decisions, supervisor records, population
-cohorts, campaign windows and serving rounds (the elastic reshape check
-waits for the multi-card mesh).
+cohorts, campaign windows, serving rounds and the elastic reshapes.
 
 ``python -m federated_pytorch_test_tpu_torch.control.replay run.jsonl``
 reads an obs JSONL artifact, rebuilds the :class:`~.policy.ControlPolicy`
@@ -12,9 +11,12 @@ round, alert and client records through it IN FILE ORDER, and diffs the
 derived decision sequence against the recorded ``control`` records.
 Supervisor records are checked too: the seeded backoff of every
 ``restart`` record is recomputed from (``restart_backoff``, ``seed``,
-``attempt``) and the attempt numbers must count up from 1.  Under
-population federation every ``client`` record's ``registry_ids`` must
-re-derive from the seeded sampler; every ``campaign`` record must equal the
+``attempt``) and the attempt numbers must count up from 1, and every
+change of the client mesh between two segments must be announced by one
+supervisor ``reshape`` record that names both meshes
+(:func:`check_reshape_records`).  Under population federation every
+``client`` record's ``registry_ids`` must re-derive from the seeded
+sampler; every ``campaign`` record must equal the
 schedule window of the header's ``campaign_spec``, and the pure fields of
 every ``serve`` record the plan of its ``serve_spec``.  Exit 0 when every
 recorded decision is reproduced bit-exactly; exit 1 (with a diff) on any
@@ -168,6 +170,66 @@ def check_supervisor_records(records: List[Dict[str, Any]],
                         f"backoff_seconds={got!r} but the seeded formula "
                         f"gives {want!r} (base={base}, seed={seed})")
     return len(sup)
+
+
+def _segment_mesh(segment: List[Dict[str, Any]]) -> Optional[int]:
+    header = next((r for r in segment
+                   if r.get("event") == "run_header"), None)
+    mesh = (header or {}).get("mesh_shape")
+    if isinstance(mesh, dict) and isinstance(mesh.get("clients"), int):
+        return mesh["clients"]
+    return None
+
+
+def check_reshape_records(segments: List[List[Dict[str, Any]]],
+                          errors: List[str]) -> int:
+    """Verify supervisor ``reshape`` records against the mesh headers.
+
+    The elastic-federation contract: every mesh-size change between
+    consecutive segments must be announced by EXACTLY ONE ``reshape``
+    control record in the dying segment, whose ``from_value`` is that
+    segment's header mesh and ``to_value`` the next segment's — a
+    dropped or tampered record is a replay divergence (exit 1), like
+    any other decision.  A reshape record in the final segment (no
+    successor header to check against) is left unverified: the
+    resumed process may simply have been killed before its header.
+    """
+    checked = 0
+    for si, segment in enumerate(segments):
+        reshapes = [r for r in segment if r.get("event") == "control"
+                    and r.get("source") == "supervisor"
+                    and r.get("intervention") == "reshape"]
+        checked += len(reshapes)
+        d_here = _segment_mesh(segment)
+        d_next = (_segment_mesh(segments[si + 1])
+                  if si + 1 < len(segments) else None)
+        if d_here is None or d_next is None:
+            continue
+        if d_here != d_next:
+            if not reshapes:
+                errors.append(
+                    f"segment {si}: mesh reshaped {d_here} -> {d_next} "
+                    "devices with NO reshape control record in the dying "
+                    "segment (record dropped?)")
+                continue
+            if len(reshapes) > 1:
+                errors.append(
+                    f"segment {si}: {len(reshapes)} reshape records for "
+                    "one mesh change (expected exactly one)")
+            rec = reshapes[0]
+            if (rec.get("from_value") != d_here
+                    or rec.get("to_value") != d_next):
+                errors.append(
+                    f"segment {si}: reshape record says "
+                    f"{rec.get('from_value')!r} -> {rec.get('to_value')!r}"
+                    f" but the run headers say {d_here} -> {d_next} "
+                    "(record tampered?)")
+        elif reshapes:
+            errors.append(
+                f"segment {si}: reshape record(s) present but the next "
+                f"segment resumed on the SAME {d_here}-device mesh "
+                "(record forged?)")
+    return checked
 
 
 def check_cohort_records(segments: List[List[Dict[str, Any]]],
@@ -379,11 +441,13 @@ def replay(records: List[Dict[str, Any]]) -> Tuple[List[str], Dict[str, int]]:
     segments = segment_stream(records)
     n_policy = check_policy_records(segments, errors)
     n_sup = check_supervisor_records(records, errors)
+    n_reshape = check_reshape_records(segments, errors)
     n_cohort = check_cohort_records(segments, errors)
     n_campaign = check_campaign_records(segments, errors)
     n_serve = check_serve_records(segments, errors)
     return errors, {"segments": len(segments), "policy_records": n_policy,
                     "supervisor_records": n_sup,
+                    "reshape_records": n_reshape,
                     "cohort_records": n_cohort,
                     "campaign_records": n_campaign,
                     "serve_records": n_serve}
@@ -392,8 +456,7 @@ def replay(records: List[Dict[str, Any]]) -> Tuple[List[str], Dict[str, int]]:
 def selftest() -> str:
     """Synthesize a stream through the REAL recorder+controller pipeline,
     then assert replay reproduces it (exit 0) and detects tampering
-    (exit 1) — chained into ``report --selftest``.  The JAX selftest's
-    elastic-reshape case is left out with the check it exercises."""
+    (exit 1) — chained into ``report --selftest``."""
     import os
     import tempfile
 
@@ -475,6 +538,31 @@ def selftest() -> str:
         errors6, _ = replay(records
                             + [dict(sup, backoff_seconds=good + 1.0)])
         assert errors6 and "seeded formula" in errors6[0], errors6
+
+        # elastic reshape verification: a two-segment stream whose mesh
+        # shrinks 8 -> 4 with the matching reshape record replays clean;
+        # tampering the record or dropping it is a divergence
+        d3 = os.path.join(d, "reshape")
+        os.makedirs(d3, exist_ok=True)
+        seg_a = read_records(synth(d3, [0.1, 0.1], mesh=8, name="seg-a"))
+        seg_b = read_records(synth(d3, [0.1], mesh=4, name="seg-b"))
+        reshape = {"event": "control", "schema": SCHEMA_VERSION,
+                   "run_id": "x", "round_index": 1,
+                   "source": "supervisor", "mode": "act", "applied": True,
+                   "intervention": "reshape", "param": "num_devices",
+                   "from_value": 8, "to_value": 4, "scope": "restart",
+                   "attempt": 1, "reason": "selftest preemption"}
+        elastic = seg_a + [sup, reshape] + seg_b
+        errors7, stats7 = replay(elastic)
+        assert not errors7, errors7
+        assert stats7["reshape_records"] == 1, stats7
+        errors8, _ = replay(
+            [dict(r, to_value=3) if r.get("intervention") == "reshape"
+             else r for r in elastic])
+        assert errors8 and "tampered" in errors8[0], errors8
+        errors9, _ = replay(
+            [r for r in elastic if r.get("intervention") != "reshape"])
+        assert errors9 and "dropped" in errors9[0], errors9
 
         # population cohorts: registry_ids re-derive from the seeded
         # sampler; a tampered id list is a divergence
@@ -602,6 +690,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         return 1
     print(f"replay OK: {stats['policy_records']} policy decision(s), "
           f"{stats['supervisor_records']} supervisor record(s), "
+          f"{stats['reshape_records']} reshape record(s), "
           f"{stats['cohort_records']} cohort record(s), "
           f"{stats['campaign_records']} campaign record(s) and "
           f"{stats['serve_records']} serve record(s) reproduce "

@@ -1,9 +1,11 @@
 """Restart supervisor: bounded retry, seeded backoff, degradation ladder.
 
-Port of ``federated_pytorch_test_tpu/control/supervisor.py`` without the
-elastic ``reshape`` rung (the port runs one process on one card): the
-same backoff, ladder and records, so the JAX package's
-``control.replay`` checks the port's streams as they are.
+Port of ``federated_pytorch_test_tpu/control/supervisor.py`` with its
+elastic ``reshape`` rung: the same backoff, ladder and records, so the
+JAX package's ``control.replay`` checks the port's streams as they are.
+On the one card the rung rebuilds the trainer over a smaller logical
+client mesh (``parallel/mesh.py`` ``ClientMesh``); the preemption that
+triggers it is the simulated one of the ``preempt=`` fault family.
 
 The supervisor is the recovery half of the control plane.  It wraps an
 engine run so a :class:`~..obs.health.RunHealthAbort` (or a policy
@@ -65,8 +67,10 @@ from federated_pytorch_test_tpu_torch.utils.checkpoint import (
 _BACKOFF_TAG = 0xC791
 
 #: exceptions the supervisor always converts into a restart attempt.
-#: CollectiveTimeoutError is the preemption signal (on the port only the
-#: simulated preempt= fault family raises it).
+#: CollectiveTimeoutError is the preemption signal (on the port the
+#: simulated preempt= fault family or a campaign's preempt_at) — under
+#: cfg.elastic_resume the classifier supervisor additionally reshapes
+#: the mesh before resuming (see supervise_classifier's reshape rung).
 RETRYABLE = (RunHealthAbort, ControlRestart, CheckpointCorruptError,
              CollectiveTimeoutError)
 
@@ -133,10 +137,9 @@ def _stage_shield(cfg, engine: str = "classifier") -> Dict[str, Any]:
 
 def _stage_robust_agg(cfg, engine: str = "classifier") -> Dict[str, Any]:
     # fused_collective/sharded_update replace the aggregation chokepoint
-    # the robust estimators need (engine constructor rule); the port's
-    # config has no sharded_update (the port has no sharded update)
+    # the robust estimators need (engine constructor rule)
     if (cfg.robust_agg == "none" and not cfg.fused_collective
-            and not getattr(cfg, "sharded_update", False)
+            and not cfg.sharded_update
             and "robust_agg" not in ENGINE_LADDER_EXCLUSIONS.get(engine, ())):
         return {"robust_agg": "median"}
     return {}
@@ -171,6 +174,21 @@ DEGRADATION_LADDER: Tuple[Tuple[str, Callable], ...] = (
     ("robust_agg", _stage_robust_agg),
     ("reduced_cohort", _stage_reduced_cohort),
 )
+
+
+def surviving_device_count(devices: int, K: int) -> int:
+    """Largest device count ``d < devices`` with ``K % d == 0``.
+
+    The reshape rung's target mesh after a preemption: losing any slice
+    of a ``devices``-chip mesh leaves at most ``devices - 1`` usable,
+    and the client axis needs ``K`` divisible by the mesh size.  Returns
+    ``devices`` unchanged when no smaller divisor exists (a 1-device
+    mesh has nothing to shrink to — the restart resumes in place).
+    """
+    for d in range(min(devices - 1, K), 0, -1):
+        if K % d == 0:
+            return d
+    return devices
 
 
 def ladder_overrides(cfg, attempt: int, engine: str = "classifier"):
@@ -322,8 +340,10 @@ def supervise(run_attempt: Callable[[int, bool], Any], *,
     ``(jsonl_path, run_id_hint, extra_records)`` for the segment that
     just failed so restart/terminal records land in its stream —
     classifier runs use :func:`supervise_classifier` which wires this to
-    the trainer's recorder; bare callers may pass None and get log-only
-    supervision.  A one-argument ``describe(attempt)`` keeps working.
+    the trainer's recorder (``exc`` lets its reshape rung react to the
+    failure TYPE, not just the count); bare callers may pass None and
+    get log-only supervision (CPC/VAE path).  A one-argument
+    ``describe(attempt)`` keeps working (pre-reshape callers).
     """
     retryable = RETRYABLE + tuple(retry_on)
     attempt = 0
@@ -405,6 +425,14 @@ def supervise_classifier(build_trainer, cfg, checkpoint_path: str, *,
                 cfg, attempt - 1, engine=engine)
             box["stage"], box["cfg"] = stage, degraded
             box["changes"] = changes
+        if box.get("reshape_to"):
+            # reshape rung (elastic federation): a CollectiveTimeoutError
+            # marked the mesh as having lost a slice — rebuild the
+            # trainer over the surviving device count recorded by
+            # describe(); sticky across later attempts (the lost slice
+            # does not come back mid-run)
+            box["cfg"] = dataclasses.replace(
+                box["cfg"], num_devices=box["reshape_to"])
         trainer = build_trainer(box["cfg"], attempt)
         box["trainer"] = trainer
         st = (state if attempt == 1 and state is not None
@@ -423,6 +451,27 @@ def supervise_classifier(build_trainer, cfg, checkpoint_path: str, *,
         if ridx < 0:
             ridx = max(-1, _failure_round(exc) if exc is not None else -1)
         extra: List[Dict[str, Any]] = []
+        if (isinstance(exc, CollectiveTimeoutError)
+                and getattr(box["cfg"], "elastic_resume", False)
+                and trainer is not None):
+            # reshape rung: the timeout says a slice is gone — resume
+            # the newest checkpoint onto the largest surviving mesh that
+            # still divides the client axis, and append the typed
+            # `reshape` decision to the dying segment's stream so
+            # control.replay can verify it against the next segment's
+            # run_header mesh_shape
+            d_here = int(box.get("reshape_to") or trainer.D)
+            d_next = surviving_device_count(d_here, cfg.K)
+            if d_next != d_here:
+                box["reshape_to"] = d_next
+                extra.append(dict(
+                    _base_record(run_id or "unknown", ridx),
+                    intervention="reshape", param="num_devices",
+                    from_value=d_here, to_value=d_next, scope="restart",
+                    attempt=attempt,
+                    reason=f"CollectiveTimeoutError: resume from the "
+                           f"newest checkpoint on the surviving "
+                           f"{d_next}-device mesh"))
         if attempt <= max(0, cfg.max_restarts):
             # `attempt` here is the restart number about to run; its
             # ladder stage is recorded against the segment that just

@@ -14,7 +14,8 @@ allocation per call is G.
 
 Dispatch is by the tensor's device, as in ``ops/infonce.py``: a CPU tensor
 takes :func:`gram_plain`, a CUDA tensor launches the kernel or raises.  The
-wrapper counts its launches in :data:`LAUNCHES`.
+wrapper counts its launches in :data:`LAUNCHES` and passes each
+launch's output to the sanitizer (``analysis/sanitize.py`` ``report``).
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ from typing import Dict, Tuple
 
 import torch
 
+from federated_pytorch_test_tpu_torch.analysis import sanitize
 from federated_pytorch_test_tpu_torch.ops import cuda_build
 
 #: launches of the kernel in this process (the wrapper adds one per launch)
@@ -166,4 +168,5 @@ def gram(a: torch.Tensor) -> torch.Tensor:
     if err:
         raise RuntimeError(f"gram kernel launch failed: CUDA error {err}")
     LAUNCHES["gram"] += 1
+    sanitize.report("gram", g)
     return g

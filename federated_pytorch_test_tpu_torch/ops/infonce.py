@@ -18,7 +18,8 @@ Both are wrapped in one ``torch.autograd.Function`` that saves
 tensors' device: a CPU tensor takes the plain version
 (:func:`~federated_pytorch_test_tpu_torch.ops.infonce_core.log_p_flat`,
 :func:`grads_plain`), a CUDA tensor launches the kernel or raises.  Each
-wrapper counts its launches in :data:`LAUNCHES`.
+wrapper counts its launches in :data:`LAUNCHES` and passes each
+launch's outputs to the sanitizer (``analysis/sanitize.py`` ``report``).
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ from typing import Callable, NamedTuple, Tuple
 
 import torch
 
+from federated_pytorch_test_tpu_torch.analysis import sanitize
 from federated_pytorch_test_tpu_torch.ops import cuda_build
 from federated_pytorch_test_tpu_torch.ops.infonce_core import (
     flat_patch_matrix,
@@ -225,6 +227,7 @@ def infonce_fwd(Z: torch.Tensor, Zhat: torch.Tensor,
     if err:
         raise RuntimeError(f"infonce_fwd kernel launch failed: CUDA error {err}")
     LAUNCHES["infonce_fwd"] += 1
+    sanitize.report("infonce_fwd", log_p)
     return log_p
 
 
@@ -255,6 +258,7 @@ def infonce_bwd(Z: torch.Tensor, Zhat: torch.Tensor, log_p: torch.Tensor,
     if err:
         raise RuntimeError(f"infonce_bwd kernel launch failed: CUDA error {err}")
     LAUNCHES["infonce_bwd"] += 1
+    sanitize.report("infonce_bwd", dZ, dZhat)
     return dZ, dZhat
 
 

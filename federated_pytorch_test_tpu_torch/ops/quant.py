@@ -15,7 +15,8 @@ Port of ``quantize_chunks`` and ``dequant_add`` of
 Dispatch is by the tensors' device, as in ``ops/infonce.py``: CPU tensors
 take the plain versions (:func:`quantize_plain`, :func:`dequant_add_plain`),
 CUDA tensors launch the kernel or raise.  Each wrapper counts its launches
-in :data:`LAUNCHES`.
+in :data:`LAUNCHES` and passes each launch's float output to the
+sanitizer (``analysis/sanitize.py`` ``report``).
 
 Both sides are pinned to one arithmetic: IEEE division by a tensor on the
 tensors' own device (a CUDA tensor divided by a Python number is computed
@@ -31,6 +32,7 @@ from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
+from federated_pytorch_test_tpu_torch.analysis import sanitize
 from federated_pytorch_test_tpu_torch.ops import cuda_build
 
 #: launches of each kernel in this process (the wrappers add one per launch)
@@ -136,6 +138,7 @@ def quantize_chunks(v: torch.Tensor, qmax: int) -> Tuple[torch.Tensor, torch.Ten
     if err != 0:
         raise RuntimeError(f"quantize_rows kernel launch failed: CUDA error {err}")
     LAUNCHES["quantize_chunks"] += 1
+    sanitize.report("quantize_rows", scale)
     return q, scale
 
 
@@ -198,6 +201,7 @@ def dequant_add(acc: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
             raise RuntimeError(f"dequant_add kernel launch failed: CUDA "
                                f"error {err}")
         LAUNCHES["dequant_add"] += 1
+        sanitize.report("dequant_add", out)
     return out
 
 

@@ -6,7 +6,8 @@ classifier drivers: FedAvg, FedProx, ADMM consensus and the no-consensus
 baseline, with the robust or compressed exchange and Adam or L-BFGS, the
 robustness shell of a round and its checkpoints, the record stream, the
 health watchdog, the control plane, the restart supervisor, the soak
-campaigns, the serving plane and the engine's throughput knobs), with
+campaigns, the serving plane, the engine's throughput knobs, the elastic
+resume and the sanitizer), with
 the JAX package's defaults, plus the device the run uses.  A knob of the
 JAX package that is missing here is not ported yet (``ROADMAP.md``).
 """
@@ -153,5 +154,19 @@ class FederatedConfig:
     # the replicated mean, which serves it.  Incompatible with
     # --robust-agg, and the fused collective wins when both are on
     sharded_update: bool = False
+
+    # elastic federation (mesh-reshaping resume): a checkpoint written on a
+    # D-shard client mesh restores onto a D'-shard one (K % D' must still
+    # be 0); the supervisor's reshape rung rebuilds over the surviving
+    # shard count after a CollectiveTimeoutError.  Off: a wrong-D resume
+    # fails with a typed CheckpointGeometryError.  Bit for bit when
+    # D' == D; when D' != D the mesh's summation order moves, so allclose
+    elastic_resume: bool = False
+    # the runtime sanitizer (analysis/sanitize.py): every train, comm and
+    # fused step (and the CPC round) runs under a dispatch mode that flags
+    # the first NaN an op makes, a zero divisor and an out-of-range index,
+    # and raises SanitizerError on the host after the step (one sync a
+    # step: a debugging mode).  Off: no mode is entered
+    sanitize: bool = False
 
     device: str = "cuda"           # "cuda" or "cpu" (the CPU only on request)

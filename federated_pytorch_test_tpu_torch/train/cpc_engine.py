@@ -55,6 +55,7 @@ import numpy as np
 import torch
 from torch.func import functional_call
 
+from federated_pytorch_test_tpu_torch.analysis import sanitize
 from federated_pytorch_test_tpu_torch.data.lofar import (
     CPCDataSource,
     RoundPrefetcher,
@@ -161,6 +162,10 @@ class CPCTrainer(RoundKernel):
             torch.backends.cudnn.allow_tf32 = False
             torch.backends.cuda.matmul.allow_tf32 = False
         self._ckpt_writer = None
+        # --sanitize: the checked rounds' carried error (None: no mode)
+        self._sanitizer = (sanitize.Sanitizer(self.device) if cfg.sanitize
+                           else None)
+        self._sanitize_label = ""
         self._init_round_kernel()
         self._validate_round_cfg()
         # the robust round is built only when a knob needs it; otherwise
@@ -416,24 +421,27 @@ class CPCTrainer(RoundKernel):
         its round-start vector and its state, and its loss reads 0."""
         xflats, opts, losses = [], [], []
         zero = torch.zeros((), dtype=torch.float32, device=self.device)
-        for k in range(self.K):
-            params = client_params(state, k)
-            x = codec.get_trainable_values(params[mdl], order, mask)
-            ok = opt[k]
-            if active is not None and not active[k] > 0:
+        # --sanitize: the local training is the instrumented step, as the
+        # JAX round checkifies its per-client training
+        with sanitize.scope(self._sanitizer, self._sanitize_label):
+            for k in range(self.K):
+                params = client_params(state, k)
+                x = codec.get_trainable_values(params[mdl], order, mask)
+                ok = opt[k]
+                if active is not None and not active[k] > 0:
+                    xflats.append(x)
+                    opts.append(ok)
+                    losses.append(zero)
+                    continue
+                step_losses = []
+                for it in range(self.Niter):
+                    flat_loss = self.block_loss(mdl, order, mask, params,
+                                                staged[k, it], px, py)
+                    x, ok, loss = self.lbfgs.step(flat_loss, x, ok)
+                    step_losses.append(loss)
                 xflats.append(x)
                 opts.append(ok)
-                losses.append(zero)
-                continue
-            step_losses = []
-            for it in range(self.Niter):
-                flat_loss = self.block_loss(mdl, order, mask, params,
-                                            staged[k, it], px, py)
-                x, ok, loss = self.lbfgs.step(flat_loss, x, ok)
-                step_losses.append(loss)
-            xflats.append(x)
-            opts.append(ok)
-            losses.append(torch.stack(step_losses).sum())
+                losses.append(torch.stack(step_losses).sum())
         return torch.stack(xflats), opts, torch.stack(losses)
 
     def _round_plain(self, staged, state, z, opt, mdl, order, mask, N,
@@ -552,6 +560,8 @@ class CPCTrainer(RoundKernel):
         self._cur_pxpy = (px, py)
         corruption = self._round_corruption((mdl, ci, px, py))
         order, mask, N = self.block(mdl, ci)
+        self._sanitize_label = (f"CPC round (model {mdl}, block {ci}, "
+                                f"round {len(history)})")
         # the quarantine census at round start, then the round's masks
         q_start = int(np.sum(self._quarantine > 0))
         tmask, wmask, corrupt, comm_host, fcounts = \
@@ -676,8 +686,12 @@ class CPCTrainer(RoundKernel):
 
     def _restore_midrun(self, path: str):
         tree, meta = ckpt.load_checkpoint(path)
-        # geometry first: a wrong-K or wrong-D slot dies with its own error
-        ckpt.validate_geometry(meta, devices=self.D, processes=1, K=self.K)
+        # geometry first: a wrong-K slot dies with its own error, and so
+        # does a wrong-D one unless elastic_resume lays it out onto this
+        # mesh (every saved tensor is [K, ...] or replicated: nothing of
+        # it depends on D)
+        ckpt.validate_geometry(meta, devices=self.D, processes=1, K=self.K,
+                               elastic=self.cfg.elastic_resume)
         dev = self.device
         state = {m: tree_map(lambda v: v.to(dev),
                              ckpt.unflatten_dict(tree, m + "/"))

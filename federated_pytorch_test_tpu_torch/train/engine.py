@@ -100,6 +100,7 @@ its one sync.  ``cfg.profile_dir`` wraps the run in ``torch.profiler``
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import dataclasses
 import os
 import time
@@ -109,6 +110,7 @@ from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
+from federated_pytorch_test_tpu_torch.analysis import sanitize
 from federated_pytorch_test_tpu_torch.compress.base import (
     make_compressor,
     stacked_init,
@@ -297,6 +299,10 @@ class BlockwiseFederatedTrainer(RoundKernel):
         if K % self.D:
             raise ValueError(f"K={K} not divisible by device count {self.D}")
         self.K_local = K // self.D
+        # --sanitize: the checked steps' carried error (None: no mode)
+        self._sanitizer = (sanitize.Sanitizer(self.device) if cfg.sanitize
+                           else None)
+        self._sanitize_round = 0
         # update compression: validated here, so a bad flag combination
         # fails at construction
         self.compressor = make_compressor(
@@ -802,8 +808,21 @@ class BlockwiseFederatedTrainer(RoundKernel):
                                           sample_weight=bn_w)
         return cross_entropy(logits, yb, wb), new_bs
 
-    def train_epoch(self, state: ClientState, ci: Optional[int], y, z, rho,
-                    xb, yb, wb, counter: int = 0, active=None, norm=None):
+    def _sanitized(self, kind: str, ci):
+        """The sanitizer's scope of one instrumented step (``--sanitize``;
+        a no-op context when it is off)."""
+        return sanitize.scope(
+            self._sanitizer,
+            f"{kind} (block {ci}, round {self._sanitize_round})")
+
+    def train_epoch(self, state: ClientState, ci: Optional[int], *args,
+                    **kwargs):
+        """:meth:`_train_epoch` as one instrumented step."""
+        with self._sanitized("train step", ci):
+            return self._train_epoch(state, ci, *args, **kwargs)
+
+    def _train_epoch(self, state: ClientState, ci: Optional[int], y, z, rho,
+                     xb, yb, wb, counter: int = 0, active=None, norm=None):
         """One local epoch (number ``counter``, which keys the noise) of
         every client on block ``ci`` (``None``: the whole net); returns the
         new state and the [K] per-client sums of the step losses.
@@ -910,9 +929,14 @@ class BlockwiseFederatedTrainer(RoundKernel):
             return "bb"
         return "plain"
 
-    def comm_round(self, state: ClientState, ci: int, z, y, rho, x0, yhat0,
-                   mode: str = "plain", active=None, corrupt=None,
-                   gbound=None):
+    def comm_round(self, state: ClientState, ci: int, *args, **kwargs):
+        """:meth:`_comm_round` as one instrumented step."""
+        with self._sanitized("comm step", ci):
+            return self._comm_round(state, ci, *args, **kwargs)
+
+    def _comm_round(self, state: ClientState, ci: int, z, y, rho, x0, yhat0,
+                    mode: str = "plain", active=None, corrupt=None,
+                    gbound=None):
         """The communication round of block ``ci``.  On a partial round
         (``_block_flags``) ``active`` is the [K] activity vector (0/1, or
         the async staleness weights), ``corrupt`` the [K] 0/1 corruption
@@ -1155,9 +1179,15 @@ class BlockwiseFederatedTrainer(RoundKernel):
 
     def _restore_midrun(self, path: str):
         tree, meta = ckpt.load_checkpoint(path)
-        # geometry first: a wrong-K or wrong-D slot dies with its own error
+        # geometry first: a wrong-K slot dies with its own error, and so
+        # does a wrong-D one unless elastic_resume lays it out onto this
+        # mesh.  Every saved tensor is a [K, ...] client stack (params,
+        # statistics, optimizer and codec state, EF residuals, y, x0,
+        # yhat0) or replicated (z, rho); the padded [K, D*seg] stacks of
+        # the fused collective and the chunked estimators live inside a
+        # round only, so nothing saved depends on D
         ckpt.validate_geometry(meta, devices=self.D, processes=1,
-                               K=self.cfg.K)
+                               K=self.cfg.K, elastic=self.cfg.elastic_resume)
         dev = self.device
         on_dev = lambda t: tree_map(lambda v: v.to(dev), t)
         params = on_dev(ckpt.unflatten_dict(tree, "params/"))
@@ -1373,6 +1403,7 @@ class BlockwiseFederatedTrainer(RoundKernel):
         partial = self._block_flags(ci)[0]
         z, y, rho, x0, yhat0 = blockvars
         t_round = time.perf_counter()
+        self._sanitize_round = len(history)
         launches0 = _launch_counts()
         # the campaign tick first: it derives this round's fault spec (and
         # may raise its deterministic preemption) before any family draws
@@ -1423,81 +1454,85 @@ class BlockwiseFederatedTrainer(RoundKernel):
             if obs.enabled:
                 phase_marks.append(("stage", "phase", t_stage,
                                     t_stage + stage_s))
-        t_train = time.perf_counter()
-        for nepoch in range(cfg.Nepoch):
-            ahead = (self._take_round_ahead((nloop, ci, nadmm))
-                     if nepoch == 0 and self._overlap_round else None)
-            t_stage = time.perf_counter()
-            if ahead is not None:
-                # launched behind the previous round's comm step
-                # (cfg.overlap_round): same inputs, same values
-                state, losses = ahead
-                t_staged = t_stage
-            else:
-                if fused:
-                    counter = counters[nepoch]
-                    xb, yb, wb = self._gather_epoch(rows_dev[nepoch])
+        # a fused round is one instrumented step: its epochs and comm step
+        # run inside it and are checked once, after the comm step
+        with (self._sanitized("fused round", ci) if fused
+              else contextlib.nullcontext()):
+            t_train = time.perf_counter()
+            for nepoch in range(cfg.Nepoch):
+                ahead = (self._take_round_ahead((nloop, ci, nadmm))
+                         if nepoch == 0 and self._overlap_round else None)
+                t_stage = time.perf_counter()
+                if ahead is not None:
+                    # launched behind the previous round's comm step
+                    # (cfg.overlap_round): same inputs, same values
+                    state, losses = ahead
+                    t_staged = t_stage
                 else:
-                    counter = self._epochs_staged
-                    xb, yb, wb = self._stage_epoch(
-                        last=(nloop == cfg.Nloop - 1 and ci == self.L - 1
-                              and nadmm == cfg.Nadmm - 1
-                              and nepoch == cfg.Nepoch - 1))
+                    if fused:
+                        counter = counters[nepoch]
+                        xb, yb, wb = self._gather_epoch(rows_dev[nepoch])
+                    else:
+                        counter = self._epochs_staged
+                        xb, yb, wb = self._stage_epoch(
+                            last=(nloop == cfg.Nloop - 1 and ci == self.L - 1
+                                  and nadmm == cfg.Nadmm - 1
+                                  and nepoch == cfg.Nepoch - 1))
+                        self._obs_sync(obs)
+                        self._host_dispatches += 1
+                        stage_s += time.perf_counter() - t_stage
+                    t_staged = time.perf_counter()
+                    state, losses = self.train_epoch(
+                        state, ci, y, z, rho, xb, yb, wb, counter,
+                        active=train_m if partial else None, norm=cnorm)
+                loss_acc = losses if loss_acc is None else loss_acc + losses
+                if cfg.be_verbose:
+                    # per-client epoch losses (the reference's be_verbose
+                    # prints, federated_multi.py:199-200): the only host
+                    # sync inside the epoch loop
+                    log(f"verbose: block={ci} nadmm={nadmm} epoch={nepoch} "
+                        "client_loss=" + np.array2string(losses.cpu().numpy(),
+                                                         precision=4))
+                if obs.enabled and not fused:
                     self._obs_sync(obs)
-                    self._host_dispatches += 1
-                    stage_s += time.perf_counter() - t_stage
-                t_staged = time.perf_counter()
-                state, losses = self.train_epoch(
-                    state, ci, y, z, rho, xb, yb, wb, counter,
-                    active=train_m if partial else None, norm=cnorm)
-            loss_acc = losses if loss_acc is None else loss_acc + losses
-            if cfg.be_verbose:
-                # per-client epoch losses (the reference's be_verbose
-                # prints, federated_multi.py:199-200): the only host
-                # sync inside the epoch loop
-                log(f"verbose: block={ci} nadmm={nadmm} epoch={nepoch} "
-                    "client_loss=" + np.array2string(losses.cpu().numpy(),
-                                                     precision=4))
-            if obs.enabled and not fused:
-                self._obs_sync(obs)
-                if ahead is None:
-                    phase_marks.append(("stage", "phase", t_stage,
-                                        t_staged))
-                phase_marks.append(("train", "phase", t_staged,
-                                    time.perf_counter()))
-        if not fused:
-            self._sync()
-        t_comm = time.perf_counter()
-        if comm_ran:
-            state, z, y, rho, x0, yhat0, diag, okf = self.comm_round(
-                state, ci, z, y, rho, x0, yhat0, self._comm_mode(nadmm),
-                active=comm_m, corrupt=corrupt,
-                gbound=self._round_gbound())
-            # the reads of the round, queued behind the comm step
-            reads = self._read_async(self._round_values(loss_acc, rho,
-                                                        diag, okf))
-            if self._overlap and not fused:
-                # the comm step runs on the card meanwhile
-                t_ov = time.perf_counter()
-                overlap_s = self._prestage_round()
-                if obs.enabled and overlap_s > 0:
-                    phase_marks.append(("overlap", "phase", t_ov,
-                                        t_ov + overlap_s))
-            if predispatch and not obs.enabled:
-                # before the host waits on this round's reads: the
-                # queue does not drain across the round boundary
-                overlap_dispatch_s = self._predispatch_round(
-                    (nloop, ci, nadmm + 1), state, z, y, rho, cnorm)
-        else:
-            reads = self._read_async(self._round_values(loss_acc, rho,
-                                                        {}, None))
-            if algo.communicates:
-                # every client out of the exchange: no collective,
-                # z/y/rho carry over, quarantine still ticks
-                diag = {"n_active": 0.0}
-                if cfg.update_guard:
-                    diag.update(guard_trips=0.0, n_ok=0.0)
-                    self._quarantine = np.maximum(self._quarantine - 1, 0)
+                    if ahead is None:
+                        phase_marks.append(("stage", "phase", t_stage,
+                                            t_staged))
+                    phase_marks.append(("train", "phase", t_staged,
+                                        time.perf_counter()))
+            if not fused:
+                self._sync()
+            t_comm = time.perf_counter()
+            if comm_ran:
+                state, z, y, rho, x0, yhat0, diag, okf = self.comm_round(
+                    state, ci, z, y, rho, x0, yhat0, self._comm_mode(nadmm),
+                    active=comm_m, corrupt=corrupt,
+                    gbound=self._round_gbound())
+                # the reads of the round, queued behind the comm step
+                reads = self._read_async(self._round_values(loss_acc, rho,
+                                                            diag, okf))
+                if self._overlap and not fused:
+                    # the comm step runs on the card meanwhile
+                    t_ov = time.perf_counter()
+                    overlap_s = self._prestage_round()
+                    if obs.enabled and overlap_s > 0:
+                        phase_marks.append(("overlap", "phase", t_ov,
+                                            t_ov + overlap_s))
+                if predispatch and not obs.enabled:
+                    # before the host waits on this round's reads: the
+                    # queue does not drain across the round boundary
+                    overlap_dispatch_s = self._predispatch_round(
+                        (nloop, ci, nadmm + 1), state, z, y, rho, cnorm)
+            else:
+                reads = self._read_async(self._round_values(loss_acc, rho,
+                                                            {}, None))
+                if algo.communicates:
+                    # every client out of the exchange: no collective,
+                    # z/y/rho carry over, quarantine still ticks
+                    diag = {"n_active": 0.0}
+                    if cfg.update_guard:
+                        diag.update(guard_trips=0.0, n_ok=0.0)
+                        self._quarantine = np.maximum(self._quarantine - 1, 0)
         if overlap_dispatch_s > 0:
             # the comm span ends with the round's reads (a sync would
             # wait for the pre-launched epoch too)
@@ -1639,6 +1674,7 @@ class BlockwiseFederatedTrainer(RoundKernel):
                                 self.init_opt(state.params, None))
             counter = self._epochs_staged
             xb, yb, wb = self._stage_epoch(last=epoch == cfg.Nepoch - 1)
+            self._sanitize_round = epoch
             state, losses = self.train_epoch(state, None, y, z, rho,
                                              xb, yb, wb, counter)
             self._host_dispatches += 1

@@ -70,11 +70,16 @@ def mesh_geometry_meta(*, devices: int, processes: int, K: int,
 
 
 def validate_geometry(meta: Dict[str, Any], *, devices: int, processes: int,
-                      K: int) -> None:
-    """Check a checkpoint's stamped geometry against the live mesh.  ``K``
-    must match (the client stack's leading axis is saved per client), and
-    so must the device and process counts (the port has no elastic
-    resume).  Raises :class:`CheckpointGeometryError`."""
+                      K: int, elastic: bool = False) -> None:
+    """Check a checkpoint's stamped geometry against the live mesh.
+
+    Checkpoints without ``geom_*`` keys pass unchecked.  ``K`` must always
+    match: the client stack's leading axis is saved per client.  A device
+    or process count that differs is legal only under ``elastic``
+    (``--elastic-resume``): the client axis is laid out again onto the new
+    mesh, as long as ``K % D'`` == 0 (the engines enforce it at
+    construction).  Raises :class:`CheckpointGeometryError`.
+    """
     if "geom_devices" not in meta:
         return
     ck_d = int(meta["geom_devices"])
@@ -84,16 +89,20 @@ def validate_geometry(meta: Dict[str, Any], *, devices: int, processes: int,
             f"checkpoint was written with K={ck_k} clients but this run "
             f"has K={K}: the client stack's leading axis is saved per "
             "client, so K can never change across a resume")
-    if ck_d != devices:
+    if ck_d != devices and not elastic:
         raise CheckpointGeometryError(
             f"checkpoint was written on a {ck_d}-device mesh but this "
-            f"run has {devices} devices; resume on the original device "
-            "count (--num-devices) for bitwise continuation")
+            f"run has {devices} devices; pass --elastic-resume "
+            "(cfg.elastic_resume=True) to restage the client axis onto "
+            "the new mesh, or resume on the original device count for "
+            "bitwise continuation")
     ck_p = int(meta.get("geom_processes", processes))
-    if ck_p != processes:
+    if ck_p != processes and not elastic:
         raise CheckpointGeometryError(
             f"checkpoint was written by a {ck_p}-process job but this "
-            f"run has {processes} processes")
+            f"run has {processes} processes; a process-count change "
+            "reshards the global arrays, so it is only legal under "
+            "--elastic-resume (cfg.elastic_resume=True)")
 
 
 def _abspath(path: str) -> str:
