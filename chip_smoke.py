@@ -110,7 +110,8 @@ which stops the script with a non-zero exit if it fails:
     K=10, batch 128, float32, Adam lr 1e-3, biased_input) with
     ``--compress topk --topk-frac 0.1 --error-feedback --fused-collective
     --num-devices 2`` (the sparse fused mean) and slice 2's cuts (Nloop
-    12 -> 1, Nadmm 3 -> 2: 20 rounds; 1,280 training images per client,
+    12 -> 1, Nadmm 3 -> 1: 10 rounds, 20 until slice 12 needed the time;
+    1,280 training images per client,
     1,000 test images, synthetic CIFAR-10).  topk_frac is 0.1, not the
     default 0.01: at 1% the stem block ships only BatchNorm parameters,
     FedAvg's write-back zeroes the stem convolution and the next backward
@@ -325,8 +326,9 @@ which stops the script with a non-zero exit if it fails:
     ``--device-data --overlap-staging --overlap-round``: bit for bit,
     ``overlap_dispatch_seconds`` above 0 on the block's first round and
     0.0 on its last, B3 launched in every round; (c) dense ADMM at D=2,
-    Nadmm 1, against ``--sharded-update`` (on the one-card mesh the
-    replicated mean serves it): the trained block within
+    Nadmm 1, against ``--sharded-update`` (the reduce-scatter of the
+    shard sums, the divide on the owned segment and the all-gather of
+    ``parallel/comm.py`` ``sharded_federated_mean``): the trained block within
     ``SHARDED_RTOL``/``SHARDED_ATOL``, and whether every parameter is bit
     for bit printed.  The child runs one intra-op thread and prints its
     start-up and runs' seconds.  Printed only: each run's round times.
@@ -364,14 +366,49 @@ which stops the script with a non-zero exit if it fails:
     the sub-models and z bit for bit, B4 and B5 launched under the
     sanitizer.  Printed only: a round's seconds with the sanitizer and
     without (its cost; phase 34's runs share the card with phases 12-32).
+35. slice 12, the client mesh over two processes: two rank processes of
+    one job on the one card (``--phase35-rank``, ``FEDTPU_DISTRIBUTED=1``
+    and the three ``FEDTPU_*`` variables over a ``file://`` store), gloo
+    through host memory (NCCL needs a card a rank: that branch has not
+    run on this one-card machine), started with phases 33-34's child and
+    collected after it; each rank deterministic (phase 32's child's
+    set-up), ``ELASTIC_BASE``'s ResNet18 runs cut to the first block.  The
+    reference is the same argv in one process at the same D, run in
+    phases 33-34's child after phase 34.  (a) the packed fused mean of a
+    seeded [10, 4,720,640] stack at D=2 (butterfly, the hop crosses the
+    ranks) and D=10 (ring, five shards a rank), through the kernels and
+    the plain versions: bit for bit the one process's, on both ranks (a
+    comparison: its launches are not counted); (b) ``--compress q8
+    --fused-collective --num-devices 2 --Nadmm 2``: the parameters (a
+    sha256 of every tensor) and every number of every record bit for bit
+    the one process, B1 and B2 launched in every round on each rank;
+    (c) ``--robust-agg krum --robust-chunked --num-devices 2``, one round:
+    bit for bit, B3 launched on each rank; (d) dense ADMM
+    ``--sharded-update --num-devices 2``, one round: bit for bit the one
+    process with the same flags, and the trained block within
+    ``SHARDED_RTOL``/``SHARDED_ATOL`` of the replicated mean's run; (e)
+    (b)'s run killed after round 0 and resumed from copies of its
+    checkpoint on the two ranks (bit for bit the uninterrupted run), in
+    one process at D=2 with ``--elastic-resume`` (bit for bit) and without
+    it (a ``CheckpointGeometryError`` naming the 2-process job); (f)
+    (b)'s run under ``--barrier-timeout 10``: rank 1 leaves once round 0's
+    checkpoint is durable, and rank 0 raises ``CollectiveTimeoutError`` at
+    round 1's fence, naming ``sync:round``, within the bound plus 20 s,
+    with ``round_index`` 1 and its timeout counted; a one-process
+    ``--elastic-resume`` then finishes the run; (g) ``drivers.federated_cpc``
+    at its defaults (K=4) at ``--num-devices 2``, its first round: the
+    sub-models and z bit for bit the one process, B4 and B5 launched on
+    each rank.  Printed only: each case's seconds, the ranks' start-up
+    seconds and the bytes each rank sent through gloo a round of (b).
 
 Phases 15-21, 24 and 25 run no hand-written kernel (top-k, the
 scatter-add, the L-BFGS update and the VAEs are stock PyTorch, as in the
 JAX package they are XLA; phase 24's q8 exchange is not fused); the
-kernel line's launches are those of phases 5, 26, 27 and 34 (B4, B5;
-phases 27 and 34 counted in their children), phases 8, 22, 26, 29, 32
-and 34 (B3) and phases 12, 23, 28, 30, 32 and 33 (B1, B2; phases 32-33
-counted in their children); phase 31 runs none.  Every driver phase
+kernel line's launches are those of phases 5, 26, 27, 34 and 35 (B4,
+B5; phases 27, 34 and 35 counted in their children and ranks), phases 8,
+22, 26, 29, 32, 34 and 35 (B3) and phases 12, 23, 28, 30, 32, 33 and 35
+(B1, B2; phases 32-33 counted in their children, 35 in the ranks and in
+its one-process reference); phase 31 runs none.  Every driver phase
 before 26 passes ``--obs-sinks none``.
 
 The line before the last is the per-kernel JSON record (with each
@@ -467,16 +504,18 @@ LARGEST_BYTES_FUSED = 9_588_800
 LARGEST_BYTES_ON_WIRE = 47_944_000
 #: slice 4 as chip_smoke drives it: FedAvg on ResNet18 with top-k and error
 #: feedback over the sparse fused collective, slice 2's cuts
-#: (federated_multi's Nadmm 3 -> 2: 20 rounds).  topk_frac 0.1, not the
+#: (federated_multi's Nadmm 3 -> 1: 10 rounds; Nadmm 2 until phase 35
+#: needed the time).  topk_frac 0.1, not the
 #: default 0.01: at 1% the stem block's k = 19 coordinates are all
 #: BatchNorm parameters, FedAvg's write-back of z (zeros at the block's
 #: start, plus the sparse mean) then zeroes the stem convolution, and the
 #: next backward pass is NaN, in the JAX package as in the port
 SLICE4_ARGV = ["--device", "cuda", "--model", "resnet18", "--compress", "topk",
                "--topk-frac", "0.1", "--error-feedback", "--fused-collective",
-               "--num-devices", "2", "--Nloop", "1", "--Nadmm", "2",
+               "--num-devices", "2", "--Nloop", "1", "--Nadmm", "1",
                "--n-train", "1280", "--n-test", "1000", "--no-save-model",
     "--obs-sinks", "none"]
+SLICE4_ROUNDS = 10
 #: top-k at the largest block, for the run's frac and the default 1%:
 #: (k = round(frac * 4,720,640), bytes_on_wire K * 8k, bytes_fused
 #: (D-1) * K * 8k at D = 2)
@@ -679,6 +718,23 @@ SANITIZE_NAN = ["--fault-spec", "corrupt=1.0,mode=nan,clients=3,seed=1"]
 #: phase 34 (c): the CPC at its defaults, the rotation's first round
 SANITIZE_CPC_ARGV = ["--device", "cuda", "--Nadmm", "1", "--no-save-model",
                      "--obs-sinks", "none"]
+#: phase 35 (slice 12): two rank processes of one job on the one card
+#: (gloo through host memory), ELASTIC_BASE's model and cuts; each case's
+#: flags, the seeded stack of (a) and the bound of (f)
+RANKS = 2
+RANKS_Q8 = ["--compress", "q8", "--fused-collective", "--num-devices", "2",
+            "--Nadmm", "2"]
+RANKS_KRUM = ["--robust-agg", "krum", "--robust-chunked", "--num-devices",
+              "2", "--Nadmm", "1"]
+RANKS_DENSE = ["--num-devices", "2", "--Nadmm", "1"]
+RANKS_CPC_ARGV = [*SANITIZE_CPC_ARGV, "--num-devices", "2"]
+RANKS_MEAN_DS = (2, 10)
+RANKS_MEAN_SEED = 35
+RANKS_BARRIER = 10.0
+#: (f): the survivor's typed error within the bound plus this many seconds
+RANKS_LOST_SLACK = 20.0
+#: how long the reference waits for the ranks' checkpoints
+RANKS_WAIT = 600.0
 STREAMS_DIR = os.path.join(ROOT, "build", "streams")
 KEPT_STREAMS: dict = {}
 #: phase 31's full-batch L-BFGS: a stiff quadratic 0.5 * sum(h * x^2) over
@@ -1855,8 +1911,8 @@ def run_slice4(dev):
             "block", "nadmm", "N", "loss", "dual_residual", "round_seconds",
             "stage_seconds", "train_seconds", "comm_seconds",
             "bytes_on_wire", "bytes_fused")}))
-    if len(history) != SLICE2_ROUNDS or len(rounds) != SLICE2_ROUNDS:
-        fail(f"expected {SLICE2_ROUNDS} rounds, got {len(history)}")
+    if len(history) != SLICE4_ROUNDS or len(rounds) != SLICE4_ROUNDS:
+        fail(f"expected {SLICE4_ROUNDS} rounds, got {len(history)}")
     if comp.name != "topk+ef" or not trainer._fused_coll:
         fail(f"slice 4 ran {comp.name} with fused={trainer._fused_coll}")
     for rec in history:
@@ -2469,8 +2525,10 @@ def run_krum_attack(dev) -> int:
         d = (z_in + apply_corruption(d0, c, spec.mode, spec.scale,
                                      w=w, mesh=trainer.mesh)) - z_in
         finite = torch.isfinite(d).all(dim=1)
-        nrm = torch.linalg.vector_norm(
-            torch.where(finite[:, None], d, torch.zeros_like(d)), dim=1)
+        # shard by shard, as the engine's guard reduces each shard's rows
+        nrm = trainer.mesh.per_shard(
+            lambda s: torch.linalg.vector_norm(s, dim=1),
+            torch.where(finite[:, None], d, torch.zeros_like(d)))
         want = (finite & (nrm <= torch.as_tensor(bound, device=d.device))
                 ).float().cpu().numpy()
         okf = shell["okf"].cpu().numpy()
@@ -3180,6 +3238,11 @@ def elastic_child_main(spec_json: str) -> None:
         check(min(on["launches"].values()) >= 1,
               "phase 34 (c): B4/B5 not launched under the sanitizer")
         result["seconds_34"] = time.perf_counter() - t34
+        # -- phase 35's one-process reference (the ranks' own checks run
+        # in the parent, against it)
+        t35 = time.perf_counter()
+        result["ranks_ref"] = ranks_reference(spec["ranks"], say)
+        result["seconds_35"] = time.perf_counter() - t35
         result["error"] = None
     except Exception as e:          # the parent prints it and fails
         result["error"] = f"{type(e).__name__}: {e}"
@@ -3190,11 +3253,12 @@ def elastic_child_main(spec_json: str) -> None:
         pickle.dump(result, f)
 
 
-def start_elastic():
+def start_elastic(ranks_dir: str):
     """Phases 33-34's start: one deterministic child (phase 32's
     mechanism), started after phase 11 so that it runs beside phases
-    12-32 and not beside the kernels' timing; :func:`finish_elastic`
-    collects it."""
+    12-32 and not beside the kernels' timing; it ends with phase 35's
+    one-process reference, which reads the ranks' checkpoints under
+    ``ranks_dir``.  :func:`finish_elastic` collects it."""
     import tempfile
 
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
@@ -3202,15 +3266,15 @@ def start_elastic():
                             dir=os.path.join(ROOT, "build"))
     proc = subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), "--phase33-child",
-         json.dumps({"dir": work})],
+         json.dumps({"dir": work, "ranks": ranks_dir})],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     return proc, work, time.perf_counter()
 
 
-def finish_elastic(started) -> dict:
+def finish_elastic(started) -> tuple:
     """Phases 33 and 34 (the child of :func:`start_elastic`): its lines
     printed, its first failure failing the script.  Returns the launches
-    of every kernel in the child's runs."""
+    of every kernel in the child's runs and phase 35's reference."""
     import pickle
     import shutil
 
@@ -3236,10 +3300,471 @@ def finish_elastic(started) -> dict:
         fail(f"phases 33-34: {res['error']}")
     log(f"phases 33-34: child start-up {res['startup_seconds']:.2f} s, "
         f"phase 33 {res['seconds_33']:.2f} s, phase 34 "
-        f"{res['seconds_34']:.2f} s; {time.perf_counter() - t0:.2f} s from "
+        f"{res['seconds_34']:.2f} s, phase 35's reference "
+        f"{res['seconds_35']:.2f} s; {time.perf_counter() - t0:.2f} s from "
         f"its start, {time.perf_counter() - t_wait:.2f} s of it after phase "
         f"32; launches {res['launches']}")
-    return res["launches"]
+    return res["launches"], res["ranks_ref"]
+
+
+# ---------------------------------------------------------------------------
+# phase 35: the client mesh over two rank processes
+# ---------------------------------------------------------------------------
+
+def _digest(tensors) -> str:
+    """A sha256 over the bytes of ``tensors`` in order."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _numbers(history) -> list:
+    """Every number of every record but what measures a process: the
+    seconds, and its own launch counts (kept apart)."""
+    return [{k: v for k, v in r.items() if isinstance(v, (int, float))
+             and not k.endswith("_seconds")} for r in history]
+
+
+def _full_state(trainer, state):
+    """The whole K-client state of a classifier run (gathered from the
+    ranks; itself with one process)."""
+    from federated_pytorch_test_tpu_torch.utils.tree import tree_map
+
+    full = lambda t: tree_map(trainer._full_leaf, t)
+    return state._replace(params=full(state.params),
+                          batch_stats=full(state.batch_stats))
+
+
+def ranks_fused_means(device: str = "cuda") -> dict:
+    """Phase 35 (a): the packed fused mean of a seeded [10, 4,720,640]
+    stack (the largest block's N) at D = 2 (butterfly) and D = 10 (ring),
+    through the kernels and the plain versions, on the job's mesh (the
+    rank mesh, or one process): (D, impl) -> (sha256, seconds)."""
+    import torch
+
+    from federated_pytorch_test_tpu_torch.compress.base import (
+        make_compressor,
+    )
+    from federated_pytorch_test_tpu_torch.ops import packed_reduce as pr
+    from federated_pytorch_test_tpu_torch.ops import quant
+    from federated_pytorch_test_tpu_torch.parallel.mesh import client_mesh
+    from federated_pytorch_test_tpu_torch.train.config import FederatedConfig
+
+    K = 10
+    counted = dict(quant.LAUNCHES)
+    bits, chunk = pr.transport_params(make_compressor(
+        "q8", quant_chunk=FederatedConfig().quant_chunk))
+    g = torch.Generator(device=device).manual_seed(RANKS_MEAN_SEED)
+    full = torch.randn(K, LARGEST_BLOCK_N, generator=g, device=device)
+    out = {}
+    for D in RANKS_MEAN_DS:
+        mesh = client_mesh(D)
+        r = mesh.rows(K)
+        local, div = pr._weighted_local_sum(full[r.start:r.stop], None, K,
+                                            mesh)
+        for name, impl in (("kernels", quant.KERNELS), ("plain", quant.PLAIN)):
+            t0 = time.perf_counter()
+            got = pr.packed_fused_mean(local, div, mesh, bits, chunk, impl)
+            if full.is_cuda:
+                torch.cuda.synchronize()
+            out[(D, name)] = (_digest([got]), time.perf_counter() - t0)
+    # a comparison of the kernels with their plain versions: not counted
+    quant.LAUNCHES.update(counted)
+    return out
+
+
+def ranks_cpc_round(argv) -> dict:
+    """Phase 35 (g): ``drivers.federated_cpc`` stopped after its first
+    round: a sha256 of the whole K-client sub-models and z, the record and
+    the InfoNCE launches of the run."""
+    import inspect
+
+    from federated_pytorch_test_tpu_torch.drivers import federated_cpc
+    from federated_pytorch_test_tpu_torch.ops import infonce
+    from federated_pytorch_test_tpu_torch.train import cpc_engine
+    from federated_pytorch_test_tpu_torch.utils.tree import leaves
+
+    step = cpc_engine.CPCTrainer._step_round
+    got = {}
+
+    class OneRound(Exception):
+        pass
+
+    def one_round(self, *a):
+        step(self, *a)
+        args = inspect.signature(step).bind(self, *a).arguments
+        state, z, _ = args["box"]
+        got["digest"] = _digest([self._full_leaf(t) for t in leaves(state)]
+                                + [z])
+        got["record"] = args["history"][-1]
+        raise OneRound
+
+    cpc_engine.CPCTrainer._step_round = one_round
+    before = dict(infonce.LAUNCHES)
+    t0 = time.perf_counter()
+    try:
+        federated_cpc.main(list(argv), log=lambda m: None)
+        raise AssertionError("phase 35 (g): the round did not end")
+    except OneRound:
+        pass
+    finally:
+        cpc_engine.CPCTrainer._step_round = step
+    return dict(got, seconds=time.perf_counter() - t0, launches={
+        k: infonce.LAUNCHES[k] - before[k] for k in before})
+
+
+def _ranks_setup():
+    """A phase 35 process's deterministic set-up (phase 32's child's), the
+    sweep cut to its first block; returns the drivers' run function."""
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    import torch
+
+    torch.use_deterministic_algorithms(True)
+    torch.set_num_threads(1)
+    sys.path.insert(0, ROOT)
+    from federated_pytorch_test_tpu_torch.drivers import common, consensus_multi
+
+    make = common.make_trainer
+
+    def first_block(*a, **kw):
+        t = make(*a, **kw)
+        t.L = 1
+        return t
+    common.make_trainer = first_block
+
+    from federated_pytorch_test_tpu_torch.parallel.mesh import (
+        transport_bytes,
+    )
+
+    def run(flags, log=lambda m: None):
+        t0, sent = time.perf_counter(), transport_bytes()
+        trainer, state, history = consensus_multi.main(
+            [*ELASTIC_BASE, *flags, "--obs-sinks", "none"], log=log)
+        sent = transport_bytes() - sent        # before the digest's gather
+        full = _full_state(trainer, state)
+        return {"history": history, "numbers": _numbers(history),
+                "seconds": time.perf_counter() - t0, "gloo_bytes": sent,
+                "launches": [r["kernel_launches"] for r in history],
+                **knobs_child_result(trainer, full)}
+    return run
+
+
+def rank_main(spec_json: str) -> None:
+    """Phase 35's rank: one of two processes of one job (``--phase35-rank``,
+    ``FEDTPU_DISTRIBUTED=1`` and the three ``FEDTPU_*`` variables), on the
+    one card through gloo.  Runs cases (a)-(e) and (g) in turn, pickling
+    its results before (f), where rank 1 leaves once round 0's checkpoint
+    is durable and rank 0 meets the typed error at its next barrier.  The
+    checks that need the one-process reference run in the parent."""
+    import pickle
+    import shutil
+    import traceback
+
+    t_rank = time.perf_counter()
+    spec = json.loads(spec_json)
+    run = _ranks_setup()
+    import torch
+
+    from federated_pytorch_test_tpu_torch.ops import gram, infonce, quant
+    from federated_pytorch_test_tpu_torch.parallel import mesh as pm
+
+    if not pm.initialize_multihost("cuda"):
+        fail("phase 35: the rank did not join a two-process group")
+    rank, work = pm.process_index(), spec["dir"]
+    out = os.path.join(work, f"rank{rank}.pkl")
+    tables = (quant.LAUNCHES, gram.LAUNCHES, infonce.LAUNCHES)
+    res = {"rank": rank, "backend": pm.distributed_backend(),
+           "startup_seconds": time.perf_counter() - t_rank, "error": None}
+
+    def save():
+        res["launches"] = {k: v for t in tables for k, v in t.items()}
+        with open(out + ".tmp", "wb") as f:
+            pickle.dump(res, f)
+        os.replace(out + ".tmp", out)
+
+    def mark(name):
+        if rank == 0:
+            open(os.path.join(work, name), "w").close()
+
+    try:
+        res["a"] = ranks_fused_means()
+        res["b"] = run(RANKS_Q8)
+        res["b"]["bytes_a_round"] = (res["b"]["gloo_bytes"]
+                                     / len(res["b"]["history"]))
+        res["c"] = run(RANKS_KRUM)
+        res["d"] = run([*RANKS_DENSE, "--sharded-update"])
+        res["g"] = ranks_cpc_round(RANKS_CPC_ARGV)
+        # (e) (b)'s run killed after round 0, resumed on the two ranks from
+        # a copy; rank 0 copies the checkpoint for the one-process resumes
+        ck = os.path.join(work, "e")
+
+        def killer(msg):
+            if "round=0/" in msg:
+                raise _Killed
+
+        t0 = time.perf_counter()
+        try:
+            run([*RANKS_Q8, "--midrun-checkpoint", "--checkpoint-dir", ck],
+                log=killer)
+            raise AssertionError("phase 35 (e): the run was not killed")
+        except _Killed:
+            pass
+        if rank == 0:
+            for tag in ("2", "1", "1n"):
+                shutil.copytree(ck, ck + tag)
+        pm.sync_global("copied")
+        mark("e.ready")
+        res["e_kill_seconds"] = time.perf_counter() - t0
+        res["e"] = run([*RANKS_Q8, "--midrun-checkpoint", "--load-model",
+                        "--checkpoint-dir", ck + "2"])
+        save()
+        # (f) a lost peer under --barrier-timeout
+        lost = {}
+
+        def leave(msg):
+            if "round=0/" in msg:
+                lost["t"] = time.perf_counter()
+                if rank == 1:
+                    sys.stdout.flush()
+                    os._exit(0)
+
+        try:
+            run([*RANKS_Q8, "--barrier-timeout", str(RANKS_BARRIER),
+                 "--midrun-checkpoint", "--checkpoint-dir",
+                 os.path.join(work, "f")], log=leave)
+            raise AssertionError("phase 35 (f): the survivor was not told")
+        except pm.CollectiveTimeoutError as e:
+            res["f"] = {"error": str(e), "round_index": e.round_index,
+                        "seconds": time.perf_counter() - lost["t"],
+                        "count": pm.collective_timeout_count()}
+        mark("f.ready")
+    except Exception as e:
+        res["error"] = f"{type(e).__name__}: {e}"
+        res["traceback"] = traceback.format_exc()
+        mark("failed")
+    save()
+    sys.stdout.flush()
+    # the peer may be gone: leave without the group's teardown
+    os._exit(0)
+
+
+def ranks_reference(work: str, say) -> dict:
+    """Phase 35's one-process reference, run in phases 33-34's
+    deterministic child: every case's run at the same D in one process,
+    then (e)'s one-process resumes and (f)'s finish from the ranks'
+    checkpoints, once the ranks have written them."""
+    run = _ranks_setup()
+    from federated_pytorch_test_tpu_torch.utils.checkpoint import (
+        CheckpointGeometryError,
+    )
+
+    ref = {"a": ranks_fused_means()}
+    ref["b"] = run(RANKS_Q8)
+    ref["c"] = run(RANKS_KRUM)
+    ref["d"] = run([*RANKS_DENSE, "--sharded-update"])
+    ref["d_replicated"] = run(RANKS_DENSE)
+    ref["g"] = ranks_cpc_round(RANKS_CPC_ARGV)
+
+    def wait(name):
+        t0 = time.perf_counter()
+        while not os.path.exists(os.path.join(work, name)):
+            if os.path.exists(os.path.join(work, "failed")):
+                raise AssertionError("phase 35: the ranks failed")
+            if time.perf_counter() - t0 > RANKS_WAIT:
+                raise AssertionError(f"phase 35: no {name} in {RANKS_WAIT} s")
+            time.sleep(0.5)
+        return time.perf_counter() - t0
+
+    ck = os.path.join(work, "e")
+    ref["e_waited"] = wait("e.ready")
+    ref["e1"] = run([*RANKS_Q8, "--midrun-checkpoint", "--load-model",
+                     "--elastic-resume", "--checkpoint-dir", ck + "1"])
+    try:
+        run([*RANKS_Q8, "--midrun-checkpoint", "--load-model",
+             "--checkpoint-dir", ck + "1n"])
+        ref["e1n"] = None
+    except CheckpointGeometryError as e:
+        ref["e1n"] = str(e)
+    ref["f_waited"] = wait("f.ready")
+    ref["f"] = run([*RANKS_Q8, "--midrun-checkpoint", "--load-model",
+                    "--elastic-resume", "--checkpoint-dir",
+                    os.path.join(work, "f")])
+    say(f"ranks reference: the one-process runs and resumes done, "
+        f"{ref['e_waited']:.2f} s waited for (e)'s checkpoint, "
+        f"{ref['f_waited']:.2f} s for (f)'s")
+    return ref
+
+
+def start_ranks():
+    """Phase 35's start: two rank processes of one job on the card (the
+    ``file://`` store in their work directory), started with phases 33-34's
+    child, whose reference waits for their checkpoints."""
+    import atexit
+    import tempfile
+
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="ranks-", dir=os.path.join(ROOT, "build"))
+    procs = []
+
+    def stop():
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    # a failed phase exits the script: the ranks go with it
+    atexit.register(stop)
+    for r in range(RANKS):
+        env = dict(os.environ, FEDTPU_DISTRIBUTED="1",
+                   FEDTPU_COORDINATOR="file://" + os.path.join(work, "store"),
+                   FEDTPU_NUM_PROCESSES=str(RANKS), FEDTPU_PROCESS_ID=str(r))
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--phase35-rank",
+             json.dumps({"dir": work})],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True))
+    return procs, work, time.perf_counter()
+
+
+def finish_ranks(started, ref) -> dict:
+    """Phase 35: the ranks' results held against the one-process
+    reference (``ref``, from phases 33-34's child).  Returns the kernels'
+    launches summed over the ranks' main-path runs."""
+    import pickle
+    import shutil
+
+    import torch
+
+    procs, work, t0 = started
+    t_wait = time.perf_counter()
+    try:
+        outs = [p.communicate(timeout=900) for p in procs]
+        for r, (p, (o, e)) in enumerate(zip(procs, outs)):
+            if p.returncode != 0:
+                log(o[-3000:])
+                log(e[-3000:])
+                fail(f"phase 35: rank {r} exited {p.returncode}")
+        res = []
+        for r in range(RANKS):
+            with open(os.path.join(work, f"rank{r}.pkl"), "rb") as f:
+                res.append(pickle.load(f))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(work, ignore_errors=True)
+    for r in res:
+        if r["error"] is not None:
+            log(r["traceback"][-4000:])
+            fail(f"phase 35: rank {r['rank']}: {r['error']}")
+    if ref is None:
+        fail("phase 35: the one-process reference did not run")
+    r0, r1 = res
+    log(f"ranks: backend {r0['backend']} on the one card (host copies "
+        f"through gloo; the NCCL branch needs a card a rank and has not "
+        f"run); start-up {r0['startup_seconds']:.2f} s and "
+        f"{r1['startup_seconds']:.2f} s")
+    # (a)
+    for key, (want, sec) in ref["a"].items():
+        got = [r["a"][key][0] for r in res]
+        ok = all(g == want for g in got)
+        log(f"ranks (a): fused mean D={key[0]} {key[1]}: both ranks bit for "
+            f"bit the one process: {ok} ({res[0]['a'][key][1]:.3f} s and "
+            f"{res[1]['a'][key][1]:.3f} s a rank, {sec:.3f} s in one)")
+        if not ok:
+            fail(f"phase 35 (a): the D={key[0]} {key[1]} mean differs")
+    for D in RANKS_MEAN_DS:
+        log(f"ranks (a): D={D} kernels vs plain bit for bit: "
+            f"{ref['a'][(D, 'kernels')][0] == ref['a'][(D, 'plain')][0]}")
+
+    def same(case, want):
+        return all(r[case]["digest"] == want["digest"]
+                   and r[case]["numbers"] == want["numbers"] for r in res)
+
+    def launched(case, names):
+        return all(min(rd[n] for n in names) >= 1
+                   for r in res for rd in r[case]["launches"])
+
+    # (b)
+    ok_b = same("b", ref["b"])
+    ok_bl = launched("b", ("quantize_chunks", "dequant_add"))
+    log(f"ranks (b): q8 fused D=2, {len(r0['b']['history'])} rounds in "
+        f"{r0['b']['seconds']:.2f} s / {r1['b']['seconds']:.2f} s (one "
+        f"process {ref['b']['seconds']:.2f} s): parameters and records bit "
+        f"for bit the one process: {ok_b}; launches a round {r0['b']['launches']} "
+        f"and {r1['b']['launches']}: B1 and B2 in every round on each rank: "
+        f"{ok_bl}; gloo bytes a round {r0['b']['bytes_a_round']:.0f} and "
+        f"{r1['b']['bytes_a_round']:.0f}")
+    if not (ok_b and ok_bl):
+        fail("phase 35 (b): the two-rank q8 run differs or missed B1/B2")
+    # (c)
+    ok_c = same("c", ref["c"])
+    ok_cl = launched("c", ("gram",))
+    log(f"ranks (c): chunked krum D=2 in {r0['c']['seconds']:.2f} s: bit "
+        f"for bit {ok_c}; B3 on each rank {ok_cl} ({r0['c']['launches']}, "
+        f"{r1['c']['launches']})")
+    if not (ok_c and ok_cl):
+        fail("phase 35 (c): the two-rank krum run differs or missed B3")
+    # (d)
+    ok_d = same("d", ref["d"])
+    err, ok_band = within(torch.from_numpy(r0["d"]["block"]),
+                          torch.from_numpy(ref["d_replicated"]["block"]),
+                          SHARDED_RTOL, SHARDED_ATOL)
+    log(f"ranks (d): dense ADMM --sharded-update D=2 in "
+        f"{r0['d']['seconds']:.2f} s: bit for bit the one process {ok_d}; "
+        f"the trained block vs the replicated mean's max |diff| {err:.3e} "
+        f"(rtol {SHARDED_RTOL}, atol {SHARDED_ATOL}: within {ok_band})")
+    if not (ok_d and ok_band):
+        fail("phase 35 (d): the sharded update differs or leaves the band")
+    # (e)
+    ok_e2 = same("e", ref["b"])
+    ok_e1 = (ref["e1"]["digest"] == ref["b"]["digest"]
+             and ref["e1"]["numbers"] == ref["b"]["numbers"])
+    msg = ref["e1n"] or ""
+    ok_e1n = "2-process job" in msg and "1 processes" in msg
+    log(f"ranks (e): killed after round 0 ({r0['e_kill_seconds']:.2f} s); "
+        f"resumed on two ranks in {r0['e']['seconds']:.2f} s, bit for bit "
+        f"the uninterrupted run: {ok_e2}; in one process with "
+        f"--elastic-resume in {ref['e1']['seconds']:.2f} s: {ok_e1}; without "
+        f"the flag: CheckpointGeometryError: {msg}")
+    if not (ok_e2 and ok_e1 and ok_e1n):
+        fail("phase 35 (e): a resume differs or the geometry error is wrong")
+    # (f)
+    f = r0["f"]
+    ok_f = ("'sync:round'" in f["error"] and f["count"] >= 1
+            and f["seconds"] <= RANKS_BARRIER + RANKS_LOST_SLACK
+            and f["round_index"] == 1)
+    ok_ff = (ref["f"]["digest"] == ref["b"]["digest"]
+             and ref["f"]["numbers"] == ref["b"]["numbers"])
+    log(f"ranks (f): rank 1 left after round 0's checkpoint; rank 0 raised "
+        f"CollectiveTimeoutError after {f['seconds']:.2f} s (bound "
+        f"{RANKS_BARRIER} s), round_index {f['round_index']}, timeouts "
+        f"counted {f['count']}: {f['error'][:160]}; the one-process "
+        f"--elastic-resume finished it in {ref['f']['seconds']:.2f} s, bit "
+        f"for bit the uninterrupted run: {ok_ff}")
+    if not (ok_f and len(ref["f"]["history"]) == 2):
+        fail("phase 35 (f): the lost peer was not reported as written")
+    # (g)
+    ok_g = all(r["g"]["digest"] == ref["g"]["digest"]
+               and _numbers([r["g"]["record"]]) == _numbers([ref["g"]["record"]])
+               for r in res)
+    ok_gl = all(min(r["g"]["launches"].values()) >= 1 for r in res)
+    log(f"ranks (g): the CPC's first round at D=2 in "
+        f"{r0['g']['seconds']:.2f} s: sub-models and z bit for bit the one "
+        f"process {ok_g}; B4/B5 on each rank {ok_gl} "
+        f"({r0['g']['launches']}, {r1['g']['launches']})")
+    if not (ok_g and ok_gl):
+        fail("phase 35 (g): the CPC round differs or missed B4/B5")
+    launches = {}
+    for r in res:
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    log(f"phase 35: {time.perf_counter() - t0:.2f} s from its start, "
+        f"{time.perf_counter() - t_wait:.2f} s of it after phases 33-34; "
+        f"launches over both ranks {launches}")
+    return launches
 
 
 def run_preempt_resume() -> None:
@@ -3445,8 +3970,8 @@ def finish_knobs(started) -> dict:
                      SHARDED_ATOL)
     bitwise = runs["sharded-off"]["digest"] == runs["sharded-on"]["digest"]
     log(f"knobs sharded: the trained block [{a.shape[0]}, {a.shape[1]}] "
-        f"with --sharded-update (the replicated mean serves it on one "
-        f"card) vs without: max |diff| {err:.3e} "
+        f"with --sharded-update (the reduce-scatter mean) vs without "
+        f"(the replicated mean): max |diff| {err:.3e} "
         f"(rtol {SHARDED_RTOL}, atol {SHARDED_ATOL}: within {ok}); every "
         f"parameter bit for bit: {bitwise}")
     if not ok:
@@ -4302,9 +4827,11 @@ def main() -> None:
     del trainer2, state2, stack
     quant_err, quant_timing, quant_device, quant_extra = check_quant(dev, card)
     extra.update(quant_extra)
-    # phases 33-34's child needs the kernels; it starts after the kernels'
-    # timing (phases 3, 4, 11) and runs beside phases 12-32
-    elastic_child = start_elastic()
+    # phases 33-34's child and phase 35's ranks need the kernels; they
+    # start after the kernels' timing (phases 3, 4, 11) and run beside
+    # phases 12-32
+    ranks = start_ranks()
+    elastic_child = start_elastic(ranks[1])
     quant_launches, stack3, trainer3, state3 = run_slice3(dev)
     check_fused_path_data(stack3, trainer3)
     profile_comm_step(trainer3, state3)
@@ -4336,12 +4863,14 @@ def main() -> None:
     gram_launches += knobs.pop("gram")
     for k, v in knobs.items():
         quant_launches[k] += v
-    elastic = finish_elastic(elastic_child)
-    for k in launches:
-        launches[k] += elastic[k]
-    gram_launches += elastic["gram"]
-    for k in quant_launches:
-        quant_launches[k] += elastic[k]
+    elastic, ranks_ref = finish_elastic(elastic_child)
+    rank_launches = finish_ranks(ranks, ranks_ref)
+    for counted in (elastic, rank_launches):
+        for k in launches:
+            launches[k] += counted[k]
+        gram_launches += counted["gram"]
+        for k in quant_launches:
+            quant_launches[k] += counted[k]
     log(f"summary: krum's selection on the raw y + rho*x stack, kernel vs "
         f"gram_plain: {raw_krum}")
 
@@ -4375,7 +4904,7 @@ def main() -> None:
             "ms": k_ms, "device_ms": quant_device[name], "plain_ms": p_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": l_ms,
             **extra[name]})
-    log(f"chip_smoke: phases 1-34 in {time.perf_counter() - t_start:.1f} s")
+    log(f"chip_smoke: phases 1-35 in {time.perf_counter() - t_start:.1f} s")
     log(card)                        # again here, where an output tail keeps it
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
@@ -4390,5 +4919,7 @@ if __name__ == "__main__":
         knobs_child_main(sys.argv[2])
     elif sys.argv[1:2] == ["--phase33-child"]:
         elastic_child_main(sys.argv[2])
+    elif sys.argv[1:2] == ["--phase35-rank"]:
+        rank_main(sys.argv[2])
     else:
         main()

@@ -3,9 +3,13 @@
 Port of ``federated_pytorch_test_tpu/control/supervisor.py`` with its
 elastic ``reshape`` rung: the same backoff, ladder and records, so the
 JAX package's ``control.replay`` checks the port's streams as they are.
-On the one card the rung rebuilds the trainer over a smaller logical
-client mesh (``parallel/mesh.py`` ``ClientMesh``); the preemption that
-triggers it is the simulated one of the ``preempt=`` fault family.
+The rung rebuilds the trainer over a smaller logical client mesh
+(``parallel/mesh.py``); what triggers it is a ``CollectiveTimeoutError``:
+the simulated preemption of the ``preempt=`` fault family, or a peer
+process lost under ``--barrier-timeout``, whose survivor resumes in a
+fresh run from the newest checkpoint with ``--elastic-resume`` (it does
+not re-form a smaller process group in place, as the JAX package does
+not).
 
 The supervisor is the recovery half of the control plane.  It wraps an
 engine run so a :class:`~..obs.health.RunHealthAbort` (or a policy

@@ -174,18 +174,26 @@ class FederatedCifar10:
         """Per-client (mean, std) [K, 2, 3]."""
         return self._norm
 
-    def train_shards_raw(self) -> Tuple[np.ndarray, np.ndarray]:
+    def train_shards_raw(self, rows: Optional[range] = None
+                         ) -> Tuple[np.ndarray, np.ndarray]:
         """The raw per-client shards ([K, n, 32, 32, 3] uint8, [K, n]
         int32): what the engine's device-resident path puts on the device
-        once (``train/engine.py`` ``_setup_device_data``)."""
-        return self._train_x, self._train_y
+        once (``train/engine.py`` ``_setup_device_data``).  ``rows``: only
+        those clients' shards (a process's rows of the client mesh)."""
+        if rows is None:
+            return self._train_x, self._train_y
+        return self._train_x[rows.start:rows.stop], \
+            self._train_y[rows.start:rows.stop]
 
-    def epoch_indices(self, seed: int) -> np.ndarray:
+    def epoch_indices(self, seed: int, rows: Optional[range] = None
+                      ) -> np.ndarray:
         """One shuffled epoch's ``[K, steps * B]`` int64 row indices into
         each client's shard: client k's permutation from one
         ``default_rng(seed)`` stream, in client order, wrap-padded to whole
         batches.  Both the host gather (:meth:`epoch_batches_raw`) and the
-        engine's device gather read these rows."""
+        engine's device gather read these rows.  ``rows``: only those
+        clients' indices (the stream still runs over all K, so they do
+        not depend on how the clients are spread over processes)."""
         rng = np.random.default_rng(seed)
         n = self.steps * self.batch
         idx = np.empty((self.K, n), np.int64)
@@ -194,24 +202,31 @@ class FederatedCifar10:
             if n > len(perm):                 # wrap-pad the remainder batch
                 perm = np.concatenate([perm, perm[: n - len(perm)]])
             idx[ck] = perm[:n]
-        return idx
+        return idx if rows is None else idx[rows.start:rows.stop]
 
-    def pad_weights(self) -> np.ndarray:
-        """[K, steps, B] float32: 0 on the wrap-pad rows of the last
-        partial minibatch, 1 elsewhere (the same every epoch)."""
-        w = np.ones((self.K, self.steps, self.batch), np.float32)
+    def pad_weights(self, rows: Optional[range] = None) -> np.ndarray:
+        """[K, steps, B] float32 (``rows``: those clients' rows): 0 on the
+        wrap-pad rows of the last partial minibatch, 1 elsewhere (the same
+        every epoch)."""
+        n = self.K if rows is None else len(rows)
+        w = np.ones((n, self.steps, self.batch), np.float32)
         if self.remainder:
             w[:, -1, self.remainder:] = 0.0
         return w
 
-    def epoch_batches_raw(self, seed: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    def epoch_batches_raw(self, seed: int, rows: Optional[range] = None
+                          ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         """One shuffled epoch: ([K, steps, B, 32, 32, 3] uint8,
-        [K, steps, B] int32 labels, [K, steps, B] float32 pad weights)."""
-        idx = self.epoch_indices(seed)
-        rows = np.arange(self.K)[:, None]
-        shape = (self.K, self.steps, self.batch)
-        return (self._train_x[rows, idx].reshape(*shape, *IMAGE_SHAPE),
-                self._train_y[rows, idx].reshape(shape), self.pad_weights())
+        [K, steps, B] int32 labels, [K, steps, B] float32 pad weights);
+        ``rows``: only those clients' batches, the same rows of the same
+        draw."""
+        idx = self.epoch_indices(seed, rows)
+        clients = (np.arange(self.K) if rows is None
+                   else np.arange(rows.start, rows.stop))[:, None]
+        shape = (len(clients), self.steps, self.batch)
+        return (self._train_x[clients, idx].reshape(*shape, *IMAGE_SHAPE),
+                self._train_y[clients, idx].reshape(shape),
+                self.pad_weights(rows))
 
     def test_batches_raw(self, batch: Optional[int] = None
                          ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:

@@ -15,6 +15,11 @@ mid-run checkpoint on) and the soak harness (``--campaign-spec``, which
 turns the mid-run checkpoint on and runs under ``campaign/harness.py``
 ``run_soak``, its waits scaled by ``--campaign-accel``).  A driver may hand in its own trainer class, model
 and extra flags, and refuses the flags of what it fixes.
+
+Under ``FEDTPU_DISTRIBUTED=1`` each process of a job joins the process
+group before its first device query (:func:`setup_runtime`) and runs its
+rank's share of the client mesh; the end-of-run checkpoint is saved by
+process 0 from the gathered tree, and a load restores each rank's rows.
 """
 
 from __future__ import annotations
@@ -40,12 +45,16 @@ from federated_pytorch_test_tpu_torch.models.resnet import ResNet9, ResNet18
 from federated_pytorch_test_tpu_torch.models.simple import Net, Net1, Net2
 from federated_pytorch_test_tpu_torch.obs.health import HEALTH_ACTIONS
 from federated_pytorch_test_tpu_torch.parallel.comm import ROBUST_AGG_CHOICES
+from federated_pytorch_test_tpu_torch.parallel.mesh import (
+    initialize_multihost,
+    rank_device,
+)
 from federated_pytorch_test_tpu_torch.population.sampler import SAMPLER_CHOICES
 from federated_pytorch_test_tpu_torch.train.algorithms import Algorithm
 from federated_pytorch_test_tpu_torch.train.config import FederatedConfig
 from federated_pytorch_test_tpu_torch.train.engine import BlockwiseFederatedTrainer
 from federated_pytorch_test_tpu_torch.utils import checkpoint as ckpt
-from federated_pytorch_test_tpu_torch.utils.tree import leaves, tree_map
+from federated_pytorch_test_tpu_torch.utils.tree import tree_map
 
 _MODELS = {"net": Net, "net1": Net1, "net2": Net2,
            "resnet9": ResNet9, "resnet18": ResNet18}
@@ -149,7 +158,18 @@ def parse_config(defaults: FederatedConfig, prog: str, argv=None,
         setattr(args, name, getattr(defaults, name))
     cfg = FederatedConfig(**{f.name: getattr(args, f.name)
                              for f in dataclasses.fields(FederatedConfig)})
-    return default_obs_dir(cfg), args
+    return setup_runtime(default_obs_dir(cfg)), args
+
+
+def setup_runtime(cfg: FederatedConfig) -> FederatedConfig:
+    """Join the job's process group when ``FEDTPU_DISTRIBUTED=1``
+    (``parallel/mesh.py`` ``initialize_multihost``), before the first
+    device query, and give this rank its device: ``cuda:LOCAL_RANK`` when
+    each rank has a card of its own, else the run's device (``--device
+    cpu`` stays the CPU)."""
+    initialize_multihost(cfg.device)
+    dev = rank_device(cfg.device)
+    return cfg if dev == cfg.device else dataclasses.replace(cfg, device=dev)
 
 
 def default_obs_dir(cfg: FederatedConfig) -> FederatedConfig:
@@ -212,7 +232,9 @@ def maybe_load(trainer: BlockwiseFederatedTrainer, name: str, log=print):
     if cfg.load_model and os.path.isdir(os.path.abspath(
             os.path.expanduser(path))):
         tree, meta = ckpt.load_checkpoint(path)
-        to = lambda t: tree_map(lambda v: v.to(trainer.device), t)
+        # each rank takes its own client rows
+        to = lambda t: tree_map(
+            lambda v: trainer._own_leaf(v).to(trainer.device), t)
         state = state._replace(
             params=to(ckpt.unflatten_dict(tree, "params/")),
             batch_stats=to(ckpt.unflatten_dict(tree, "batch_stats/")))
@@ -229,9 +251,11 @@ def finish(trainer: BlockwiseFederatedTrainer, state, name: str, history,
     cfg = trainer.cfg
     if not cfg.save_model:
         return
-    tree = {**ckpt.flatten_dict(state.params, "params/"),
-            **ckpt.flatten_dict(state.batch_stats, "batch_stats/")}
-    for i, leaf in enumerate(leaves(state.opt_state)):
+    # the whole K-client tree, gathered across the ranks (process 0 writes)
+    full = lambda t: tree_map(trainer._full_leaf, t)
+    tree = {**ckpt.flatten_dict(full(state.params), "params/"),
+            **ckpt.flatten_dict(full(state.batch_stats), "batch_stats/")}
+    for i, leaf in enumerate(trainer._full_opt_leaves(state.opt_state)):
         tree[f"opt/{i}"] = torch.as_tensor(leaf)
     path = checkpoint_path(cfg, name)
     ckpt.save_checkpoint(path, tree, {"rounds": len(history)})

@@ -102,7 +102,7 @@ def main(argv=None, log=print):
     if cfg.load_model and os.path.isdir(os.path.abspath(
             os.path.expanduser(path))):
         tree, _ = ckpt.load_checkpoint(path)
-        state = {m: tree_map(lambda v: v.to(trainer.device),
+        state = {m: tree_map(lambda v: trainer._own(v).to(trainer.device),
                              ckpt.unflatten_dict(tree, m + "/"))
                  for m in SUBMODELS}
         log(f"loaded checkpoint <- {path}")
@@ -154,7 +154,8 @@ def main(argv=None, log=print):
     if cfg.save_model:
         tree = {}
         for m in SUBMODELS:
-            tree.update(ckpt.flatten_dict(state[m], m + "/"))
+            tree.update(ckpt.flatten_dict(
+                tree_map(trainer._full_leaf, state[m]), m + "/"))
         ckpt.save_checkpoint(path, tree, {"rounds": len(history)})
         log(f"saved checkpoint -> {path}")
     common.print_obs_artifact(trainer, log)

@@ -12,8 +12,11 @@ quantized allreduce over the client mesh:
   packed segments are all-gathered and decoded.
 
 The devices are the logical shards of :class:`ClientMesh`: each step runs
-the D per-device programs in index order, so the arithmetic is that of the
-JAX program at that D, hop by hop.  Every hop quantizes with
+the per-device programs of this process's devices in index order, so the
+arithmetic is that of the JAX program at that D, hop by hop.  On a
+:class:`~federated_pytorch_test_tpu_torch.parallel.mesh.RankMesh` a
+process runs its own devices' programs and a hop whose receiver is on
+another rank crosses the process group; the numbers are the same.  Every hop quantizes with
 :func:`~federated_pytorch_test_tpu_torch.ops.quant.quantize_chunks` (kernel
 B1) and accumulates with
 :func:`~federated_pytorch_test_tpu_torch.ops.quant.dequant_add` (kernel B2)
@@ -29,7 +32,7 @@ one accumulator in client order.
 
 from __future__ import annotations
 
-from typing import Callable, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -90,21 +93,22 @@ def _seg_elems(n: int, D: int, chunk: int) -> int:
     return -(-n // (D * chunk)) * chunk
 
 
-def _butterfly_reduce_scatter(bufs: List[torch.Tensor], mesh: ClientMesh,
-                              seg: int, chunk: int, bits: int,
-                              impl: QuantImpl) -> List[int]:
+def _butterfly_reduce_scatter(bufs: Dict[int, torch.Tensor],
+                              mesh: ClientMesh, seg: int, chunk: int,
+                              bits: int, impl: QuantImpl) -> Dict[int, int]:
     """Recursive-halving reduce-scatter over packed payloads (power-of-2 D),
-    in place on the devices' ``bufs``.  Returns each device's ``lo``:
-    ``bufs[me][lo:lo+seg]`` is its fully reduced segment (``lo == me*seg``)."""
+    in place on this process's devices' ``bufs`` (keyed by device index).
+    Returns each own device's ``lo``: ``bufs[me][lo:lo+seg]`` is its fully
+    reduced segment (``lo == me*seg``)."""
     D = mesh.size
-    lo = [0] * D
+    lo = {me: 0 for me in mesh.indices()}
     half = D // 2
     while half >= 1:
         width = half * seg
-        keep, sends = [], []
+        keep, sends = {}, []
         for me in mesh.indices():
             bit = (me & half) > 0                 # my side of this exchange
-            keep.append(lo[me] + (width if bit else 0))
+            keep[me] = lo[me] + (width if bit else 0)
             send_lo = lo[me] + (0 if bit else width)
             sends.append(pack_chunks(bufs[me][send_lo: send_lo + width],
                                      chunk, bits, impl))
@@ -118,11 +122,12 @@ def _butterfly_reduce_scatter(bufs: List[torch.Tensor], mesh: ClientMesh,
     return lo
 
 
-def _ring_reduce_scatter(bufs: List[torch.Tensor], mesh: ClientMesh, seg: int,
-                         chunk: int, bits: int, impl: QuantImpl) -> List[int]:
+def _ring_reduce_scatter(bufs: Dict[int, torch.Tensor], mesh: ClientMesh,
+                         seg: int, chunk: int, bits: int,
+                         impl: QuantImpl) -> Dict[int, int]:
     """Quantized ring reduce-scatter for non-power-of-2 D: ``D-1`` neighbour
     exchanges, in place on ``bufs``; device ``me`` ends owning segment
-    ``(me+1) % D``.  Returns each device's owned offset."""
+    ``(me+1) % D``.  Returns each own device's owned offset."""
     D = mesh.size
     perm = [(i, (i + 1) % D) for i in range(D)]
     for t in range(D - 1):
@@ -136,7 +141,7 @@ def _ring_reduce_scatter(bufs: List[torch.Tensor], mesh: ClientMesh, seg: int,
             r = ((me - 1 - t) % D) * seg
             q, s = recv[me]
             _hop_accumulate(bufs[me][r: r + seg], q, s, chunk, bits, impl)
-    return [((me + 1) % D) * seg for me in mesh.indices()]
+    return {me: ((me + 1) % D) * seg for me in mesh.indices()}
 
 
 def packed_fused_mean(local: Sequence[torch.Tensor], div: torch.Tensor,
@@ -144,19 +149,21 @@ def packed_fused_mean(local: Sequence[torch.Tensor], div: torch.Tensor,
                       impl: QuantImpl = KERNELS) -> torch.Tensor:
     """Quantized allreduce-mean of the devices' partial sums.
 
-    ``local``: one ``[N]`` float32 partial sum per device; ``div``: the
-    divisor, a 0-d tensor on the same device (already guarded against
-    zero).  The reduce-scatter ships packed payloads, each device divides
-    its owned ``[seg]`` segment and packs it once, and the packed segments
-    are gathered and decoded.  Every device would decode the same bytes, so
-    they are decoded once.
+    ``local``: one ``[N]`` float32 partial sum per device of this process
+    (in :meth:`ClientMesh.indices` order); ``div``: the divisor, a 0-d
+    tensor on the same device (already guarded against zero).  The
+    reduce-scatter ships packed payloads, each device divides its owned
+    ``[seg]`` segment and packs it once, and the packed segments are
+    gathered and decoded.  Every device would decode the same bytes, so a
+    process decodes them once.
     """
     D = mesh.size
     n = local[0].shape[-1]
     if D == 1:
         return local[0] / div
     seg = _seg_elems(n, D, chunk)
-    bufs = [torch.nn.functional.pad(x, (0, D * seg - n)) for x in local]
+    bufs = {me: torch.nn.functional.pad(x, (0, D * seg - n))
+            for me, x in zip(mesh.indices(), local)}
     if D & (D - 1) == 0:
         lo = _butterfly_reduce_scatter(bufs, mesh, seg, chunk, bits, impl)
     else:

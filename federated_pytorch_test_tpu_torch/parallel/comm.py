@@ -6,13 +6,18 @@ card the K clients are the leading dimension of one tensor; the JAX
 package's collectives over the client mesh become the fixed-order tensor
 operations of :class:`~federated_pytorch_test_tpu_torch.parallel.mesh.ClientMesh`.
 
-Every estimator here takes the whole ``[K, N]`` client stack (what the JAX
-dense path ``all_gather``\\ s onto every device) and returns the ``[N]``
-aggregate.  The chunked estimators run the JAX segment-owned program once
+Every estimator here takes the process's ``[K, N]`` client stack (with
+one process the whole stack; on a :class:`RankMesh` this rank's rows, which
+the dense estimators gather whole first, as the JAX dense path
+``all_gather``\\ s onto every device) and returns the ``[N]`` aggregate.  The chunked estimators run the JAX segment-owned program once
 per shard: shard d owns the column slab d of the ``all_to_all``, its
 per-client partial sums are ``psum``\\ ed over the shards in order, and the
 per-shard results are concatenated.  Krum's chunked distance pass calls the
 Gram kernel (``ops/gram.py``, kernel B3) once per shard.
+
+:func:`sharded_federated_mean` is the ``--sharded-update`` mean: a
+reduce-scatter of the shard sums, the divide on each shard's owned
+segment, an all-gather.
 
 The compressed exchange's mean (:func:`compressed_federated_mean`) decodes
 dense (q8/q4) payloads before each shard's sum; sparse (top-k) payloads
@@ -28,7 +33,11 @@ import torch
 
 from federated_pytorch_test_tpu_torch.ops.gram import gram
 from federated_pytorch_test_tpu_torch.compress.topk import accumulate_rows
-from federated_pytorch_test_tpu_torch.parallel.mesh import ClientMesh
+from federated_pytorch_test_tpu_torch.parallel.mesh import (  # noqa: F401
+    ClientMesh,
+    CollectiveTimeoutError,
+    bounded_wait,
+)
 
 #: CLI surface — ``drivers/common.py`` derives ``--robust-agg`` from this
 ROBUST_AGG_CHOICES = ("none", "trim", "median", "clip", "krum", "geomed")
@@ -48,6 +57,71 @@ def federated_mean(stack: torch.Tensor, K: int,
     """``z = sum_k x_k / K`` over the leading [K, ...] client dimension —
     the FedAvg global update (reference federated_multi.py:208-211)."""
     return federated_sum(stack, mesh) / K
+
+
+def per_client_norms(stack: torch.Tensor, ref: torch.Tensor,
+                     mesh: Optional[ClientMesh] = None) -> torch.Tensor:
+    """``||x_k - ref||_2`` of every client row of ``stack`` [K, n] -> [K]:
+    the client-ledger probe, computed shard by shard as each device of the
+    JAX mesh computes its own rows (no collective)."""
+    def norms(s):
+        d = s - ref[None, :]
+        return torch.sqrt((d * d).sum(dim=1))
+    return (mesh or ClientMesh(1)).per_shard(norms, stack)
+
+
+def all_clients_dot(a: torch.Tensor, b: torch.Tensor,
+                    mesh: Optional[ClientMesh] = None) -> torch.Tensor:
+    """``sum_k <a_k, b_k>`` over ALL clients of [K, N] stacks: each shard's
+    local sum, then the ``psum``."""
+    mesh = mesh or ClientMesh(1)
+    return mesh.psum([(x * y).sum() for x, y in
+                      zip(mesh.shards(a), mesh.shards(b))])
+
+
+def sharded_federated_mean(stack: torch.Tensor,
+                           w: Optional[torch.Tensor] = None, *, K: int,
+                           mesh: ClientMesh) -> torch.Tensor:
+    """The ``--sharded-update`` drop-in for the plain mean (the JAX
+    package's ``sharded_federated_mean``, arXiv:2004.13336): each shard's
+    local sum (``w`` [K] weights it and the divisor is their ``psum``, an
+    all-rejected round giving zeros), padded to ``D*seg``, is
+    reduce-scattered so that shard d owns segment d of the global sum
+    (summed over the shards in order); the divide runs on the owned
+    segment and a tiled all-gather re-replicates.  Each coordinate is the
+    same ordered sum and the same division as the replicated mean's."""
+    n = stack.shape[-1]
+    f32 = dict(dtype=stack.dtype, device=stack.device)
+    shards = mesh.shards(stack)
+    if w is None:
+        local = [s.sum(dim=0) for s in shards]
+        div = torch.full((), float(K), **f32)
+    else:
+        ws = mesh.shards(w)
+        local = [(wd[:, None] * s).sum(dim=0) for s, wd in zip(shards, ws)]
+        n_act = mesh.psum([wd.sum() for wd in ws])
+        div = torch.where(n_act > 0, n_act, torch.ones((), **f32))
+    D = mesh.size
+    if D == 1:
+        return local[0] / div
+    seg = -(-n // D)
+    owned = mesh.reduce_scatter(
+        [torch.nn.functional.pad(x, (0, D * seg - n)) for x in local])
+    return mesh.all_gather([o / div for o in owned])[:n]
+
+
+def robust_gather_bytes(kind: str, K: int, n: int, D: int,
+                        chunked: bool) -> int:
+    """Per-device bytes of the robust estimator's gathered working set:
+    dense, the ``[K, N]`` float32 stack; chunked, the ``[K, ceil(N/D)]``
+    slab (plus krum's ``[K, K]`` Gram block)."""
+    if kind == "none":
+        return 0
+    if not chunked or D <= 1:
+        return 4 * K * n
+    seg = -(-n // D)
+    extra = 4 * K * K if kind == "krum" else 0
+    return 4 * K * seg + extra
 
 
 def decode_stack(payloads, compressor, n: int) -> torch.Tensor:
@@ -251,8 +325,12 @@ def robust_federated_mean_chunked(x: torch.Tensor,
     if mesh.size <= 1:
         return robust_federated_mean(x, w, kind=kind, trim_frac=trim_frac,
                                      clip_mult=clip_mult)
-    K, n = x.shape
+    n = x.shape[1]
     slabs = mesh.all_to_all(x)
+    # the slabs hold every client's rows: the screen reads all K weights
+    K = slabs[0].shape[0]
+    if w is not None:
+        w = mesh.gather_rows(w)
     nonfinite = mesh.psum([(~torch.isfinite(s)).to(x.dtype).sum(dim=1)
                            for s in slabs])
     finite = nonfinite == 0
@@ -320,5 +398,13 @@ def make_robust_mean(kind: str, *, trim_frac: float = 0.1,
         return functools.partial(robust_federated_mean_chunked, kind=kind,
                                  trim_frac=trim_frac, clip_mult=clip_mult,
                                  mesh=mesh or ClientMesh(1))
-    return functools.partial(robust_federated_mean, kind=kind,
-                             trim_frac=trim_frac, clip_mult=clip_mult)
+    dense = functools.partial(robust_federated_mean, kind=kind,
+                              trim_frac=trim_frac, clip_mult=clip_mult)
+    if mesh is None or mesh.processes == 1:
+        return dense
+
+    def gathered(x, w=None):
+        # the dense estimators read the whole [K, N] stack on every rank
+        return dense(mesh.gather_rows(x),
+                     None if w is None else mesh.gather_rows(w))
+    return gathered

@@ -3,9 +3,13 @@
 Port of ``federated_pytorch_test_tpu/train/algorithms.py``.  Each strategy
 supplies the per-client penalty added to the local loss and the global
 update of a communication round, on the flat masked block vectors.  Here
-``x``/``y`` are the whole ``[K, N]`` client stacks and ``mesh`` the client
-mesh, whose shards and fixed-order ``psum`` stand for the JAX package's
-``shard_map`` over the ``'clients'`` axis.
+``x``/``y`` are the process's ``[K, N]`` client stacks (all K with one
+process, this rank's rows on a rank mesh) and ``mesh`` the client mesh,
+whose shards and fixed-order ``psum`` stand for the JAX package's
+``shard_map`` over the ``'clients'`` axis.  Per-client reductions run
+shard by shard (``ClientMesh.per_shard``), as each JAX device reduces its
+own rows, so the numbers do not depend on how the shards are spread over
+processes.
 
 Write-back: FedAvg overwrites every client with z; FedProx and ADMM never
 write back (consensus only through the penalty).
@@ -100,7 +104,8 @@ class FedProx(Algorithm):
         znew = self._agg(x, w, K, mesh, mean_fn)
         n = x.shape[-1]
         dual = torch.linalg.vector_norm(z - znew) / n
-        per = torch.linalg.vector_norm(rho * (x - znew), dim=1)
+        per = mesh.per_shard(
+            lambda s: torch.linalg.vector_norm(rho * (s - znew), dim=1), x)
         if w is not None:
             per = per * w
         return znew, y, {"primal_residual": _primal(per, mesh) / n,
@@ -127,7 +132,8 @@ class AdmmConsensus(Algorithm):
         ydelta = rho * (x - znew)
         if w is not None:
             ydelta = w[:, None] * ydelta
-        primal = _primal(torch.linalg.vector_norm(ydelta, dim=1), mesh) / n
+        primal = _primal(mesh.per_shard(
+            lambda s: torch.linalg.vector_norm(s, dim=1), ydelta), mesh) / n
         return znew, y + ydelta, {"primal_residual": primal,
                                   "dual_residual": dual}
 
@@ -140,7 +146,8 @@ class BBConfig:
     rhomax: float = 0.1
 
 
-def bb_rho_update(x, z, y, rho, x0, yhat0, bb: BBConfig):
+def bb_rho_update(x, z, y, rho, x0, yhat0, bb: BBConfig,
+                  mesh: Optional[ClientMesh] = None):
     """Barzilai-Borwein spectral rho update (consensus_multi.py:242-278).
 
     Per client: yhat = y + rho(x - z); dy = yhat - yhat0; dx = x - x0;
@@ -149,13 +156,16 @@ def bb_rho_update(x, z, y, rho, x0, yhat0, bb: BBConfig):
     2 alpha_MG > alpha_SD else alpha_SD - alpha_MG/2; accepted iff alpha >=
     alphacorrmin and alphahat < rhomax.  As in the JAX package, every client
     evaluates with the round's incoming rho and the last client's (k = K-1)
-    decision is adopted.  Returns (rho_new, x0_new, yhat0_new)."""
+    decision is adopted (on a rank mesh, gathered from the last rank).
+    Returns (rho_new, x0_new, yhat0_new)."""
+    mesh = mesh or ClientMesh(1)
     yhat = y + rho * (x - z)
     dy = yhat - yhat0
     dx = x - x0
-    d11 = (dy * dy).sum(dim=1)
-    d12 = (dy * dx).sum(dim=1)
-    d22 = (dx * dx).sum(dim=1)
+    rowdot = lambda a, b: (a * b).sum(dim=1)
+    d11 = mesh.per_shard(rowdot, dy, dy)
+    d12 = mesh.per_shard(rowdot, dy, dx)
+    d22 = mesh.per_shard(rowdot, dx, dx)
     ok_den = (d12.abs() > bb.epsilon) & (d11 > bb.epsilon) & (d22 > bb.epsilon)
     alpha = d12 / torch.sqrt(d11 * d22 + 1e-30)
     alpha_sd = d11 / (d22 + 1e-30)
@@ -164,4 +174,4 @@ def bb_rho_update(x, z, y, rho, x0, yhat0, bb: BBConfig):
                            alpha_sd - 0.5 * alpha_mg)
     accept = ok_den & (alpha >= bb.alphacorrmin) & (alphahat < bb.rhomax)
     cand = torch.where(accept, alphahat, rho.expand_as(alphahat))
-    return cand[-1], x, yhat
+    return mesh.gather_rows(cand)[-1], x, yhat

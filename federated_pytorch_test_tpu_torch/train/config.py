@@ -150,9 +150,9 @@ class FederatedConfig:
     # update guard, async rounds, faults or churn, a campaign, population
     overlap_round: bool = False
     # the consensus mean as a reduce-scatter of the shard sums, a divide
-    # on the owned segment and an all-gather; on the one-card mesh that is
-    # the replicated mean, which serves it.  Incompatible with
-    # --robust-agg, and the fused collective wins when both are on
+    # on the owned segment and an all-gather (each coordinate the same
+    # ordered sum and division as the replicated mean's).  Incompatible
+    # with --robust-agg, and the fused collective wins when both are on
     sharded_update: bool = False
 
     # elastic federation (mesh-reshaping resume): a checkpoint written on a
@@ -162,6 +162,14 @@ class FederatedConfig:
     # fails with a typed CheckpointGeometryError.  Bit for bit when
     # D' == D; when D' != D the mesh's summation order moves, so allclose
     elastic_resume: bool = False
+
+    # preemption-tolerant collectives (parallel/mesh.py bounded_wait):
+    # bound every multi-process barrier and fetch by this many seconds, so
+    # a peer process lost to preemption surfaces as a typed
+    # CollectiveTimeoutError (which the restart supervisor's reshape rung
+    # acts on) instead of a hang.  0 = off (the literal unwrapped call,
+    # no thread).  Also settable through FEDTPU_BARRIER_TIMEOUT
+    barrier_timeout: float = 0.0
     # the runtime sanitizer (analysis/sanitize.py): every train, comm and
     # fused step (and the CPC round) runs under a dispatch mode that flags
     # the first NaN an op makes, a zero divisor and an out-of-range index,

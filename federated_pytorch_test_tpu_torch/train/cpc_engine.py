@@ -8,12 +8,15 @@ minibatches per client through L-BFGS, then FedAvg of the block,
 ``dual = |z - z_new| / N`` and the write-back of ``z_new`` into every
 client.  The L-BFGS state persists across the ``Nadmm`` rounds of a block.
 
-On one card the K clients are the leading dimension of every parameter
-tensor, and local training is a loop over clients (the JAX ``vmap``; a
-batched ``while_loop`` keeps each finished client's carry, so the values
-are the same).  Each closure evaluates its sub-model at a flat block vector
-with ``torch.func.functional_call``; the frozen prefix of the pipeline is
-computed once per minibatch, outside the closure.  The InfoNCE tail runs
+The K clients are the leading dimension of every parameter tensor (with
+several processes, each rank's own K/P rows of it, drawn from the seeded
+source for ``local_client_rows``), and local training is a loop over
+clients (the JAX ``vmap``; a batched ``while_loop`` keeps each finished
+client's carry, so the values are the same); every host read of a
+client-stacked value is gathered whole first.  Each closure evaluates its
+sub-model at a flat block vector with ``torch.func.functional_call``; the
+frozen prefix of the pipeline is computed once per minibatch, outside the
+closure.  The InfoNCE tail runs
 the CUDA kernels of ``ops/infonce.py``.
 
 The trainer composes the round kernel of ``train/rounds.py``, as the
@@ -49,6 +52,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
+import warnings
 from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
@@ -71,9 +75,14 @@ from federated_pytorch_test_tpu_torch.optim.lbfgs import LBFGSNew
 from federated_pytorch_test_tpu_torch.parallel.comm import (
     federated_mean,
     make_robust_mean,
+    per_client_norms,
 )
 from federated_pytorch_test_tpu_torch.parallel.mesh import (
-    ClientMesh,
+    CollectiveTimeoutError,
+    barrier_timeout,
+    client_mesh,
+    local_client_rows,
+    sync_global,
     usable_device_count,
 )
 from federated_pytorch_test_tpu_torch.train.algorithms import FedAvg
@@ -91,7 +100,6 @@ from federated_pytorch_test_tpu_torch.utils.profiling import (
 )
 from federated_pytorch_test_tpu_torch.utils.tree import (
     get_by_path,
-    leaves,
     map_leaves,
     set_by_path,
     tree_map,
@@ -176,12 +184,18 @@ class CPCTrainer(RoundKernel):
                               or cfg.participation < 1.0
                               or cfg.async_rounds or cfg.update_guard
                               or cfg.robust_agg != "none")
-        self.mesh = ClientMesh(usable_device_count(self.K)
-                               if cfg.num_devices is None
-                               else cfg.num_devices)
+        self.mesh = client_mesh(usable_device_count(self.K)
+                                if cfg.num_devices is None
+                                else cfg.num_devices)
         self.D = self.mesh.size
         if self.K % self.D:
             raise ValueError(f"K={self.K} not divisible by {self.D} devices")
+        # this process's clients: all K with one process, the rank's K/P
+        # contiguous rows on a rank mesh; the data source draws only those
+        self.rows = self.mesh.rows(self.K)
+        self.n_rows = len(self.rows)
+        self._clients = (None if self.mesh.processes == 1
+                         else local_client_rows(self.mesh, self.K))
         self.mean_fn = make_robust_mean(
             cfg.robust_agg, trim_frac=cfg.trim_frac, clip_mult=cfg.clip_mult,
             chunked=cfg.robust_chunked, mesh=self.mesh)
@@ -202,8 +216,8 @@ class CPCTrainer(RoundKernel):
         for name in SUBMODELS:
             tree = init_weights(self.models[name].param_tree(), gen)
             self.state0[name] = tree_map(
-                lambda t: t.unsqueeze(0).expand(self.K, *t.shape).contiguous(),
-                tree)
+                lambda t: t.unsqueeze(0).expand(self.n_rows, *t.shape)
+                .contiguous(), tree)
         # (px, py) of the round in flight, for the mid-run checkpoint
         self._cur_pxpy = (0, 0)
         # the corruption each (model, block, px, py) round applies
@@ -269,8 +283,9 @@ class CPCTrainer(RoundKernel):
         return flat_loss
 
     def stage(self, batch) -> torch.Tensor:
-        """Host round batch [K, Niter, nb, patch, patch, 8] NHWC -> device
-        [K, Niter, nb, 8, patch, patch] NCHW (converted on the device)."""
+        """Host round batch [K, Niter, nb, patch, patch, 8] NHWC of this
+        process's clients -> device [K, Niter, nb, 8, patch, patch] NCHW
+        (converted on the device)."""
         return (torch.from_numpy(batch).to(self.device)
                 .permute(0, 1, 2, 5, 3, 4).contiguous())
 
@@ -281,8 +296,8 @@ class CPCTrainer(RoundKernel):
     def init_opt(self, state: CPCState, mdl: str, order, mask) -> list:
         """A fresh L-BFGS state per client at its block vector."""
         return [self.lbfgs.init(codec.get_trainable_values(
-            client_params(state, k)[mdl], order, mask))
-            for k in range(self.K)]
+            client_params(state, j)[mdl], order, mask))
+            for j in range(self.n_rows)]
 
     # ------------------------------------------------------------------
     def run(self, Nloop: int = 1, Nadmm: int = 1,
@@ -362,7 +377,13 @@ class CPCTrainer(RoundKernel):
             log("resumed a COMPLETED run: no rounds remain at "
                 f"Nloop={Nloop} Nadmm={Nadmm}; returning the saved history")
         if cfg.async_checkpoint and checkpoint_path is not None:
-            self._ckpt_writer = ckpt.AsyncCheckpointWriter()
+            if self.mesh.processes > 1:
+                warnings.warn(
+                    "async_checkpoint is single-process only (the slot "
+                    "swap must be collective across hosts); falling back "
+                    "to synchronous checkpointing")
+            else:
+                self._ckpt_writer = ckpt.AsyncCheckpointWriter()
         obs = self._open_obs(resumed=restored, rounds_prior=len(history))
         if obs.control is not None:
             obs.control.can_restart = checkpoint_path is not None
@@ -371,7 +392,8 @@ class CPCTrainer(RoundKernel):
         blocks_per = [len(self.models[m].train_order_block_ids())
                       for m in SUBMODELS]
         profile_on = cfg.profile_dir is not None
-        src = (RoundPrefetcher(self.data, self.Niter, n_rounds)
+        src = (RoundPrefetcher(self.data, self.Niter, n_rounds,
+                               clients=self._clients)
                if prefetch and n_rounds > 0 else None)
         try:
             for nloop in range(Nloop):
@@ -397,12 +419,19 @@ class CPCTrainer(RoundKernel):
                         flat_bi = sum(blocks_per[:mdl_i]) + ci
                         for nadmm in range(nadmm_start, Nadmm):
                             box = [state, z, opt]
-                            with round_trace(len(history),
-                                             enabled=profile_on):
-                                self._step_round(
-                                    obs, src, box, nloop, mdl_i, mdl, ci,
-                                    flat_bi, nadmm, Nadmm, blocks_per[mdl_i],
-                                    history, checkpoint_path, log)
+                            try:
+                                with round_trace(len(history),
+                                                 enabled=profile_on):
+                                    self._step_round(
+                                        obs, src, box, nloop, mdl_i, mdl,
+                                        ci, flat_bi, nadmm, Nadmm,
+                                        blocks_per[mdl_i], history,
+                                        checkpoint_path, log)
+                            except CollectiveTimeoutError as e:
+                                # a lost peer: name the round
+                                if e.round_index is None:
+                                    e.round_index = len(history)
+                                raise
                             state, z, opt = box
         finally:
             if src is not None:
@@ -415,19 +444,20 @@ class CPCTrainer(RoundKernel):
 
     def _train_clients(self, staged, state, opt, mdl, order, mask, px, py,
                        active=None):
-        """``Niter`` L-BFGS steps of every client on block ``mdl``/``mask``:
-        ([K, N] block vectors, the new optimizer states, [K] summed step
-        losses).  A client with ``active[k] == 0`` does not train: it keeps
-        its round-start vector and its state, and its loss reads 0."""
+        """``Niter`` L-BFGS steps of this process's clients on block
+        ``mdl``/``mask``: ([rows, N] block vectors, the new optimizer
+        states, [rows] summed step losses).  A client with ``active[k] ==
+        0`` (``active`` over all K) does not train: it keeps its
+        round-start vector and its state, and its loss reads 0."""
         xflats, opts, losses = [], [], []
         zero = torch.zeros((), dtype=torch.float32, device=self.device)
         # --sanitize: the local training is the instrumented step, as the
         # JAX round checkifies its per-client training
         with sanitize.scope(self._sanitizer, self._sanitize_label):
-            for k in range(self.K):
-                params = client_params(state, k)
+            for j, k in enumerate(self.rows):
+                params = client_params(state, j)
                 x = codec.get_trainable_values(params[mdl], order, mask)
-                ok = opt[k]
+                ok = opt[j]
                 if active is not None and not active[k] > 0:
                     xflats.append(x)
                     opts.append(ok)
@@ -436,7 +466,7 @@ class CPCTrainer(RoundKernel):
                 step_losses = []
                 for it in range(self.Niter):
                     flat_loss = self.block_loss(mdl, order, mask, params,
-                                                staged[k, it], px, py)
+                                                staged[j, it], px, py)
                     x, ok, loss = self.lbfgs.step(flat_loss, x, ok)
                     step_losses.append(loss)
                 xflats.append(x)
@@ -461,11 +491,11 @@ class CPCTrainer(RoundKernel):
         for p in codec.active_paths_in_order(order, mask):
             leaf = get_by_path(one, p)
             sub = set_by_path(sub, p, leaf.unsqueeze(0).expand(
-                self.K, *leaf.shape).contiguous())
+                self.n_rows, *leaf.shape).contiguous())
         norms = (None, None)
         if self._client_probe:
-            norms = (torch.linalg.vector_norm(xflat - z[None, :], dim=1),
-                     torch.linalg.vector_norm(xflat - znew[None, :], dim=1))
+            norms = (per_client_norms(xflat, z, self.mesh),
+                     per_client_norms(xflat, znew, self.mesh))
         return {**state, mdl: sub}, znew, opt, dual, losses, norms
 
     def _round_corruption(self, key: tuple):
@@ -491,17 +521,18 @@ class CPCTrainer(RoundKernel):
         cfg, K, mesh, dev = self.cfg, self.K, self.mesh, self.device
         xflat, opt, losses = self._train_clients(
             staged, state, opt, mdl, order, mask, px, py, active=tmask)
-        w_in = torch.as_tensor(np.asarray(wmask, np.float32), device=dev)
+        w_in = torch.as_tensor(self._own(np.asarray(wmask, np.float32)),
+                               device=dev)
         x = xflat
         if corruption is not None:
             # the wire delta is poisoned at the encode boundary
-            c = torch.as_tensor(np.asarray(corrupt, np.float32), device=dev)
+            c = torch.as_tensor(self._own(np.asarray(corrupt, np.float32)),
+                                device=dev)
             x = z[None, :] + apply_corruption(
                 x - z[None, :], c, *corruption,
                 w=w_in, mesh=mesh)
         probe = self._client_probe
-        cl_nrm = (torch.linalg.vector_norm(x - z[None, :], dim=1)
-                  if probe else None)
+        cl_nrm = per_client_norms(x, z, mesh) if probe else None
         psum = lambda v: mesh.psum([s.sum() for s in mesh.shards(v)])
         w = w_in
         okf = None
@@ -510,8 +541,9 @@ class CPCTrainer(RoundKernel):
             # selects only, so no NaN reaches the aggregation
             d = x - z[None, :]
             finite = torch.isfinite(d).all(dim=1)
-            nrm = torch.linalg.vector_norm(
-                torch.where(finite[:, None], d, torch.zeros_like(d)), dim=1)
+            nrm = mesh.per_shard(
+                lambda s: torch.linalg.vector_norm(s, dim=1),
+                torch.where(finite[:, None], d, torch.zeros_like(d)))
             bound = torch.as_tensor(np.float32(gbound), device=dev)
             okf = (finite & (nrm <= bound)).to(torch.float32)
             w = w_in * okf
@@ -529,14 +561,13 @@ class CPCTrainer(RoundKernel):
             diag["guard_trips"] = n_trip
             diag["guard_norm_mean"] = norm_mean
             diag["n_ok"] = n_ok
-        cl_dist = (torch.linalg.vector_norm(x - znew[None, :], dim=1)
-                   if probe else None)
+        cl_dist = per_client_norms(x, znew, mesh) if probe else None
         # the accepted participants receive z_new; the others keep their
         # own block (an async dispatcher its freshly trained one: it is
         # the update in flight)
         own = codec.put_trainable_stack(state[mdl], order, mask, xflat)
-        wrote = codec.put_trainable_stack(own, order, mask,
-                                          znew.unsqueeze(0).expand(K, -1))
+        wrote = codec.put_trainable_stack(
+            own, order, mask, znew.unsqueeze(0).expand(self.n_rows, -1))
         diag["n_active"] = psum(w_in)
         return ({**state, mdl: _sel(w, wrote, own)}, znew, opt, dual,
                 losses, diag, okf, (cl_nrm, cl_dist))
@@ -549,6 +580,9 @@ class CPCTrainer(RoundKernel):
         cfg = self.cfg
         t_round = time.perf_counter()
         launches0 = self._launch_counts()
+        if self.mesh.processes > 1 and barrier_timeout() > 0:
+            # with the bound armed a round starts at a bounded fence
+            sync_global("round")
         # the campaign tick, then the simulated preemption, before any
         # work of the round
         self._campaign_tick(len(history), nloop, flat_bi, nadmm,
@@ -556,7 +590,8 @@ class CPCTrainer(RoundKernel):
         self._maybe_preempt(nloop, flat_bi, nadmm, len(history),
                             checkpoint_path)
         px, py, batch = (src.get() if src is not None
-                         else self.data.round_batches(self.Niter))
+                         else self.data.round_batches(self.Niter,
+                                                      self._clients))
         self._cur_pxpy = (px, py)
         corruption = self._round_corruption((mdl, ci, px, py))
         order, mask, N = self.block(mdl, ci)
@@ -588,12 +623,15 @@ class CPCTrainer(RoundKernel):
                                    self._round_gbound(), corruption)
             diag = {k: float(v) for k, v in diag.items()}
             if cfg.update_guard:
-                self._apply_guard_verdicts(diag, okf.cpu().numpy(),
-                                           comm_host)
+                self._apply_guard_verdicts(
+                    diag, self.mesh.gather_rows(okf).cpu().numpy(),
+                    comm_host)
+            losses = self.mesh.gather_rows(losses)
             loss_host = losses.cpu().numpy()
         else:
             state, z, opt, dual, losses, norms = self._round_plain(
                 staged, state, z, opt, mdl, order, mask, N, px, py)
+            losses = self.mesh.gather_rows(losses)
             loss_host = losses.cpu().numpy()
         n_active = diag.get("n_active", self.K) if self._robust_round \
             else self.K
@@ -635,7 +673,8 @@ class CPCTrainer(RoundKernel):
             extra_fields["async_mode"] = True
             # the cutoff in force: the control plane may have moved it
             extra_fields["max_staleness"] = self.cfg.max_staleness
-        cl_nrm, cl_dist = (None if t is None else t.cpu().numpy()
+        cl_nrm, cl_dist = (None if t is None else
+                           self.mesh.gather_rows(t).cpu().numpy()
                            for t in norms)
         self._emit_round_obs(
             obs, rec, round_index=len(history) - 1, t_round=t_round,
@@ -662,12 +701,15 @@ class CPCTrainer(RoundKernel):
         px, py = self._cur_pxpy
         nloop, mdl_i, ci, nadmm = nxt
         mid_block = nadmm > 0       # z and the L-BFGS states carry over
+        # the whole K-client tree (gathered across the ranks; every rank
+        # enters the collective save, rank 0 writes)
         tree = {}
         for m in SUBMODELS:
-            tree.update(ckpt.flatten_dict(state[m], m + "/"))
+            tree.update(ckpt.flatten_dict(tree_map(self._full_leaf, state[m]),
+                                          m + "/"))
         if mid_block:
             tree["z"] = z
-            for i, leaf in enumerate(leaves(opt)):
+            for i, leaf in enumerate(self._full_opt_leaves(opt)):
                 tree[f"opt/{i}"] = torch.as_tensor(leaf)
         meta = {
             "nloop": nloop, "mdl_i": mdl_i, "ci": ci, "nadmm": nadmm,
@@ -689,11 +731,12 @@ class CPCTrainer(RoundKernel):
         # geometry first: a wrong-K slot dies with its own error, and so
         # does a wrong-D one unless elastic_resume lays it out onto this
         # mesh (every saved tensor is [K, ...] or replicated: nothing of
-        # it depends on D)
-        ckpt.validate_geometry(meta, devices=self.D, processes=1, K=self.K,
+        # it depends on D, and each process restores its own rows)
+        ckpt.validate_geometry(meta, devices=self.D,
+                               processes=self.mesh.processes, K=self.K,
                                elastic=self.cfg.elastic_resume)
         dev = self.device
-        state = {m: tree_map(lambda v: v.to(dev),
+        state = {m: tree_map(lambda v: self._own(v).to(dev),
                              ckpt.unflatten_dict(tree, m + "/"))
                  for m in SUBMODELS}
         self.data._round = int(meta["data_round"])
@@ -703,8 +746,9 @@ class CPCTrainer(RoundKernel):
             mdl = SUBMODELS[int(meta["mdl_i"])]
             order, mask, _ = self.block(mdl, int(meta["ci"]))
             n_opt = sum(1 for k in tree if k.startswith("opt/"))
-            opt = unflatten_like(self.init_opt(state, mdl, order, mask),
-                                 [tree[f"opt/{i}"] for i in range(n_opt)])
+            template = self.init_opt(state, mdl, order, mask)
+            opt = unflatten_like(template, self._own_opt_leaves(
+                template, [tree[f"opt/{i}"] for i in range(n_opt)]))
             z = tree["z"].to(dev)
         self._restore_ledger_meta(meta)
         history = ckpt.unpack_history(meta["history"])

@@ -41,6 +41,17 @@ numbers.  The JAX engine's device path draws its shuffle with
 matches the JAX host path, and parity runs pin ``device_data=False`` on
 the JAX side.
 
+With several processes (``FEDTPU_DISTRIBUTED=1``, ``parallel/mesh.py``
+``RankMesh``) each rank holds K/P contiguous clients: its stacks, its
+epochs and its per-client loop cover only those rows (``self.rows``),
+the host's ``[K]`` draws stay whole on every rank and are cut to its rows
+where they meet the stacks, and every host read of a client-stacked value
+(losses, guard verdicts, client norms, evaluation totals, the checkpoint
+tree) is gathered whole first, so every rank writes the same records.
+The checkpoint is saved by rank 0 between barriers and each rank restores
+its own rows; with the bound of ``--barrier-timeout`` armed a round
+starts at a bounded fence.
+
 The throughput knobs change when the host launches work, never what is
 computed: ``fused_rounds`` stages a round's epoch indices up front and
 runs its epochs and update with no host read or sync in between;
@@ -49,9 +60,9 @@ runs its epochs and update with no host read or sync in between;
 reads the round's results (:meth:`_read_async`); the epoch counter
 advances only when an epoch is consumed, so checkpoints and resume are
 exact under each of them.  ``sharded_update`` is accepted with the JAX
-engine's refusals; on the one-card client mesh a reduce-scatter of the
-shard sums would compute the replicated mean's numbers, so the
-replicated mean serves it.  Each round record carries
+engine's refusals and runs ``parallel/comm.py``
+``sharded_federated_mean``: a reduce-scatter of the shard sums, the
+divide on the owned segment and an all-gather.  Each round record carries
 ``host_dispatches``, the JAX engine's count of local-training calls of
 the round (Nepoch, 1 when fused).  In the port it counts calls of a
 Python method, not launches on the device: every kernel is launched
@@ -102,6 +113,7 @@ from __future__ import annotations
 import concurrent.futures
 import contextlib
 import dataclasses
+import functools
 import os
 import time
 import warnings
@@ -127,9 +139,14 @@ from federated_pytorch_test_tpu_torch.optim.lbfgs import LBFGSNew
 from federated_pytorch_test_tpu_torch.parallel.comm import (
     decode_stack,
     make_robust_mean,
+    per_client_norms,
+    sharded_federated_mean,
 )
 from federated_pytorch_test_tpu_torch.parallel.mesh import (
-    ClientMesh,
+    CollectiveTimeoutError,
+    barrier_timeout,
+    client_mesh,
+    sync_global,
     usable_device_count,
 )
 from federated_pytorch_test_tpu_torch.serve.batcher import MicroBatcher
@@ -293,12 +310,16 @@ class BlockwiseFederatedTrainer(RoundKernel):
         self.normal: Callable[..., torch.Tensor] = torch_normal
 
         K = cfg.K
-        self.mesh = ClientMesh(usable_device_count(K) if cfg.num_devices is None
-                               else cfg.num_devices)
+        self.mesh = client_mesh(usable_device_count(K) if cfg.num_devices is None
+                                else cfg.num_devices)
         self.D = self.mesh.size
         if K % self.D:
             raise ValueError(f"K={K} not divisible by device count {self.D}")
         self.K_local = K // self.D
+        # the client rows this process holds: all K with one process, the
+        # rank's K/P contiguous rows on a rank mesh
+        self.rows = self.mesh.rows(K)
+        self.n_rows = len(self.rows)
         # --sanitize: the checked steps' carried error (None: no mode)
         self._sanitizer = (sanitize.Sanitizer(self.device) if cfg.sanitize
                            else None)
@@ -336,16 +357,17 @@ class BlockwiseFederatedTrainer(RoundKernel):
             self.mean_fn = None         # built each round from its payload
         elif self._fused_coll:
             self.mean_fn = make_fused_mean(self.compressor, self.mesh, K)
+        elif cfg.sharded_update:
+            # the reduce-scatter of the shard sums, the divide on the owned
+            # segment and the all-gather (the fused collective, which
+            # already divides on the owned segment, wins when both are on)
+            self.mean_fn = functools.partial(sharded_federated_mean, K=K,
+                                             mesh=self.mesh)
         else:
             self.mean_fn = make_robust_mean(
                 cfg.robust_agg, trim_frac=cfg.trim_frac,
                 clip_mult=cfg.clip_mult, chunked=cfg.robust_chunked,
                 mesh=self.mesh)
-            # sharded_update: on the one-card mesh the reduce-scatter of
-            # the shard sums, the divide on the owned segment and the
-            # all-gather give the replicated mean's numbers, so the plain
-            # mean serves it (the fused collective, which already divides
-            # on the owned segment, wins when both are on)
         self._validate_round_cfg()
 
         # common init: every client starts from the same weights (drawn on
@@ -369,8 +391,8 @@ class BlockwiseFederatedTrainer(RoundKernel):
         self.lbfgs = LBFGSNew(history_size=cfg.lbfgs_history_size,
                               max_iter=cfg.lbfgs_max_iter, batch_mode=True,
                               line_search_fn=True)
-        stack = lambda t: (t.unsqueeze(0).expand(K, *t.shape).contiguous()
-                           .to(self.device))
+        stack = lambda t: (t.unsqueeze(0).expand(self.n_rows, *t.shape)
+                           .contiguous().to(self.device))
         self.params0 = tree_map(stack, params)
         self.batch_stats0 = tree_map(stack, batch_stats)
 
@@ -382,8 +404,8 @@ class BlockwiseFederatedTrainer(RoundKernel):
         # the host copy serves population mode: slot k's normalisation
         # follows the cohort's data shard (rid % K)
         self._client_norm_host = np.asarray(data.norm_stats, np.float32)
-        self.client_norm = torch.from_numpy(self._client_norm_host).to(
-            self.device)
+        self.client_norm = torch.from_numpy(
+            self._own(self._client_norm_host)).to(self.device)
 
         # each block's frozen round shape (_block_flags)
         self._flag_cache: Dict[int, tuple] = {}
@@ -492,23 +514,25 @@ class BlockwiseFederatedTrainer(RoundKernel):
         N = self.block_size(ci)
         if self.optimizer_for_block(ci) == "adam":
             f32 = dict(dtype=torch.float32, device=self.device)
-            return AdamState(torch.zeros(self.cfg.K, N, **f32),
-                             torch.zeros(self.cfg.K, N, **f32),
-                             torch.zeros(self.cfg.K, dtype=torch.int64))
+            return AdamState(torch.zeros(self.n_rows, N, **f32),
+                             torch.zeros(self.n_rows, N, **f32),
+                             torch.zeros(self.n_rows, dtype=torch.int64))
         X = codec.get_trainable_stack(params, self.order,
                                       self.mask_for_block(ci))
         return [self.lbfgs.init(x) for x in X]
 
-    def _init_comp_state(self, ci: int, device=None):
+    def _init_comp_state(self, ci: int, device=None, full: bool = False):
         """Fresh [K]-stacked compressor state for block ``ci`` (or None),
         seeded per (cfg.seed, block) as in the JAX engine, on ``device``
-        (default the trainer's)."""
+        (default the trainer's): this process's rows of it, or all K with
+        ``full``."""
         if self.compressor.name == "none":
             return None
         seed = int(np.random.default_rng(
             [self.cfg.seed, 23, ci]).integers(2**31))
-        return stacked_init(self.compressor, self.cfg.K, self.block_size(ci),
+        comp = stacked_init(self.compressor, self.cfg.K, self.block_size(ci),
                             seed, device or self.device)
+        return comp if full else map_leaves(self._own_leaf, comp)
 
     def _population_swap_comp(self, comp, ci: int):
         """Move the [K]-stacked compressor/EF rows to this round's cohort:
@@ -524,14 +548,16 @@ class BlockwiseFederatedTrainer(RoundKernel):
             # first round of the block: the live state is the fresh init
             self._pop_comp_prev = cohort.copy()
             return comp
-        cur = [t.detach().cpu().numpy() for t in leaves(comp)]
+        cur = [self._full_leaf(t).detach().cpu().numpy()
+               for t in leaves(comp)]
         stacked = [a.ndim >= 1 and a.shape[0] == self.cfg.K for a in cur]
         if self._pop_comp_prev is not None:
             reg.stash_comp_rows(self._pop_comp_prev, cur, stacked)
         fresh = [t.numpy()
-                 for t in leaves(self._init_comp_state(ci, "cpu"))]
+                 for t in leaves(self._init_comp_state(ci, "cpu", full=True))]
         out = reg.load_comp_rows(cohort, fresh, stacked)
-        out = [o if is_k else c for o, c, is_k in zip(out, cur, stacked)]
+        out = [self._own(o) if is_k else c
+               for o, c, is_k in zip(out, cur, stacked)]
         self._pop_comp_prev = cohort.copy()
         return unflatten_like(comp, [torch.from_numpy(np.array(o))
                                      for o in out])
@@ -556,8 +582,10 @@ class BlockwiseFederatedTrainer(RoundKernel):
         else the shuffled and gathered batches."""
         seed = self._epoch_seed(counter, 0)
         if self._dev_x is not None:
-            return self.data.epoch_indices(seed)
-        return self.data.epoch_batches_raw(seed)
+            return self.data.epoch_indices(seed, rows=self.rows)
+        # population re-indexes the whole K by the cohort first
+        return self.data.epoch_batches_raw(
+            seed, rows=None if self._pop_active else self.rows)
 
     # ------------------------------------------------------------------
     # device-resident data (cfg.device_data)
@@ -599,18 +627,19 @@ class BlockwiseFederatedTrainer(RoundKernel):
         (:meth:`_gather_epoch`).  Ends in a sync, so that the side stream
         of the staging look-ahead may read the shards without waiting on
         the main stream."""
-        xt, yt = self.data.train_shards_raw()
+        xt, yt = self.data.train_shards_raw(rows=self.rows)
         dev = self.device
         self._dev_x = torch.from_numpy(np.array(xt)).to(dev)
         self._dev_y = torch.from_numpy(np.array(yt, np.int32)).to(dev)
-        self._dev_w = torch.from_numpy(self.data.pad_weights()).to(dev)
-        self._dev_rows = torch.arange(self.cfg.K, device=dev)[:, None]
+        self._dev_w = torch.from_numpy(
+            self.data.pad_weights(rows=self.rows)).to(dev)
+        self._dev_rows = torch.arange(self.n_rows, device=dev)[:, None]
         self._sync()
 
     def _gather_epoch(self, idx: torch.Tensor):
         """(xb, yb, wb) of one epoch from its [K, steps*B] row indices on
         the device: the rows ``epoch_batches_raw`` gathers on the host."""
-        K, S, B = self.cfg.K, self.data.steps, self.data.batch
+        K, S, B = self.n_rows, self.data.steps, self.data.batch
         xb = self._dev_x[self._dev_rows, idx]
         return (xb.view(K, S, B, *xb.shape[2:]),
                 self._dev_y[self._dev_rows, idx].view(K, S, B), self._dev_w)
@@ -644,9 +673,11 @@ class BlockwiseFederatedTrainer(RoundKernel):
         card): the copy goes from pinned memory, non-blocking, on a side
         stream, and ``event`` marks its end; no synchronisation here."""
         dev = self.device
-        if self._dev_x is None and self._pop_active and self._cohort is not None:
-            rows = (self._cohort % self.cfg.K).astype(np.int64)
-            raw = tuple(a[rows] for a in raw)
+        if self._dev_x is None and self._pop_active:
+            if self._cohort is not None:
+                rows = (self._cohort % self.cfg.K).astype(np.int64)
+                raw = tuple(a[rows] for a in raw)
+            raw = tuple(self._own(a) for a in raw)
         host = [raw] if self._dev_x is not None else list(raw)
         if not (ahead and dev.type == "cuda"):
             out = [torch.from_numpy(a).to(dev) for a in host]
@@ -825,11 +856,13 @@ class BlockwiseFederatedTrainer(RoundKernel):
                      xb, yb, wb, counter: int = 0, active=None, norm=None):
         """One local epoch (number ``counter``, which keys the noise) of
         every client on block ``ci`` (``None``: the whole net); returns the
-        new state and the [K] per-client sums of the step losses.
-        ``active`` (numpy [K], None: every client): the clients that train;
+        new state and the per-client sums of the step losses, of this
+        process's client rows (all K with one process).  ``active`` (numpy
+        [K] over all clients, None: every client): the clients that train;
         the others keep their parameters, statistics and optimizer state
-        bit for bit and their loss reads 0.  ``norm``: the [K, 2, 3]
-        normalisation of the slots (default the clients' own)."""
+        bit for bit and their loss reads 0.  ``norm``: the [rows, 2, 3]
+        normalisation of this process's slots (default the clients'
+        own)."""
         cfg, algo = self.cfg, self.algo
         order, mask = self.order, self.mask_for_block(ci)
         lam1, lam2 = self.reg_for_block(ci)
@@ -842,30 +875,32 @@ class BlockwiseFederatedTrainer(RoundKernel):
         xs, opts, bss, losses = [], [], [], []
         steps = xb.shape[1]
         zero = torch.zeros((), dtype=torch.float32, device=self.device)
-        for k in range(cfg.K):
-            bsk = tree_map(lambda t: t[k], state.batch_stats)
-            xk = X[k]
-            ok = opt[k] if lbfgs else (opt.mu[k], opt.nu[k])
+        # j: the row in this process's stacks; k: the global client index
+        # (the activity draw and the noise words are keyed on it)
+        for j, k in enumerate(self.rows):
+            bsk = tree_map(lambda t: t[j], state.batch_stats)
+            xk = X[j]
+            ok = opt[j] if lbfgs else (opt.mu[j], opt.nu[j])
             if active is not None and not active[k] > 0:
                 xs.append(xk)
                 opts.append(ok)
                 bss.append(bsk)
                 losses.append(zero)
                 continue
-            pk = tree_map(lambda t: t[k], state.params)
-            count0 = 0 if lbfgs else int(opt.count[k])
+            pk = tree_map(lambda t: t[j], state.params)
+            count0 = 0 if lbfgs else int(opt.count[j])
             step_losses = []
             for step in range(steps):
-                xn = _normalize_u8(xb[k, step], norm[k])
+                xn = _normalize_u8(xb[j, step], norm[j])
                 # one draw a step: the line search's evaluations share it
                 noise = self.noise((cfg.seed, counter, k, step),
                                    xb.shape[2])
 
                 def batch_loss(v, xn=xn, step=step, bsk=bsk, noise=noise):
                     p = codec.put_trainable_values(pk, order, mask, v)
-                    loss, new_bs = self.model_loss(p, bsk, xn, yb[k, step],
-                                                   wb[k, step], noise)
-                    loss = loss + algo.penalty(v, z, y[k], rho)
+                    loss, new_bs = self.model_loss(p, bsk, xn, yb[j, step],
+                                                   wb[j, step], noise)
+                    loss = loss + algo.penalty(v, z, y[j], rho)
                     if reg_on:
                         loss = loss + l1_l2(v, lam1, lam2)
                     return loss, new_bs
@@ -892,8 +927,9 @@ class BlockwiseFederatedTrainer(RoundKernel):
                                            torch.stack(xs))
         batch_stats = tree_stack(bss) if self.has_bn else state.batch_stats
         if not lbfgs:
-            ran = (torch.ones(cfg.K, dtype=torch.int64) if active is None
-                   else torch.from_numpy(np.asarray(active) > 0).long())
+            ran = (torch.ones(self.n_rows, dtype=torch.int64)
+                   if active is None else
+                   torch.from_numpy(self._own(np.asarray(active) > 0)).long())
             opts = AdamState(torch.stack([m for m, _ in opts]),
                              torch.stack([n for _, n in opts]),
                              opt.count + steps * ran)
@@ -942,23 +978,27 @@ class BlockwiseFederatedTrainer(RoundKernel):
         the async staleness weights), ``corrupt`` the [K] 0/1 corruption
         indicator and ``gbound`` the guard's norm bound; the three are
         ignored on the full-participation round.  Returns (state, z, y,
-        rho, x0, yhat0, diag, okf): ``okf`` the [K] guard verdicts (None
-        with the guard off).  With the client record on, ``_client_norms``
-        holds the [K] ``||x_k - z||`` and ``||x_k - z_new||``."""
+        rho, x0, yhat0, diag, okf): ``okf`` the guard verdicts of this
+        process's rows (None with the guard off).  With the client record
+        on, ``_client_norms`` holds their ``||x_k - z||`` and
+        ``||x_k - z_new||``.  ``active`` and ``corrupt`` are over all K
+        clients; the stacks are this process's rows."""
         cfg = self.cfg
         K = cfg.K
         order, mask = self.order, self.mask_for_block(ci)
         partial, corruption = self._block_flags(ci)
         guard_on = cfg.update_guard
         dev = z.device
+        mesh = self.mesh
         if partial:
-            active = torch.as_tensor(np.asarray(active, np.float32),
-                                     device=dev)
+            active = torch.as_tensor(
+                self._own(np.asarray(active, np.float32)), device=dev)
         x = codec.get_trainable_stack(state.params, order, mask)
         if corruption is not None:
             # the wire delta is poisoned before compression, where a faulty
             # client corrupts a real deployment; the EF residual sees it
-            c = torch.as_tensor(np.asarray(corrupt, np.float32), device=dev)
+            c = torch.as_tensor(self._own(np.asarray(corrupt, np.float32)),
+                                device=dev)
             x = z[None, :] + apply_corruption(
                 x - z[None, :], c, *corruption, w=active, mesh=self.mesh)
         comp = state.comp
@@ -979,16 +1019,16 @@ class BlockwiseFederatedTrainer(RoundKernel):
         # the client record's probe: each client's raw ||x_k - z|| on what
         # the round folds (a non-finite delta stays visible here)
         probe = self._client_probe
-        cl_nrm = torch.linalg.vector_norm(x - z[None, :], dim=1) \
-            if probe else None
+        cl_nrm = per_client_norms(x, z, mesh) if probe else None
         okf = None
         if guard_on:
             # every incoming delta must be finite and within the bound;
             # selects only, so no NaN reaches the aggregation
             d = x - z[None, :]
             finite = torch.isfinite(d).all(dim=1)
-            nrm = torch.linalg.vector_norm(
-                torch.where(finite[:, None], d, torch.zeros_like(d)), dim=1)
+            nrm = mesh.per_shard(
+                lambda s: torch.linalg.vector_norm(s, dim=1),
+                torch.where(finite[:, None], d, torch.zeros_like(d)))
             bound = torch.as_tensor(np.float32(gbound), device=dev)
             okf = (finite & (nrm <= bound)).to(torch.float32)
             w = active * okf
@@ -1010,7 +1050,7 @@ class BlockwiseFederatedTrainer(RoundKernel):
             rho, x0, yhat0 = bb_rho_update(
                 x, z, y, rho, x0, yhat0,
                 BBConfig(cfg.bb_period_T, cfg.bb_alphacorrmin,
-                         cfg.bb_epsilon, cfg.bb_rhomax))
+                         cfg.bb_epsilon, cfg.bb_rhomax), mesh=mesh)
         znew, ynew, diag = self.algo.global_update(
             x, z, y, rho, K, self.mesh, w=w, mean_fn=mean_fn)
         if guard_on:
@@ -1019,12 +1059,12 @@ class BlockwiseFederatedTrainer(RoundKernel):
             diag["guard_trips"] = n_trip
             diag["guard_norm_mean"] = norm_mean
             diag["n_ok"] = n_ok
-        self._client_norms = ((cl_nrm, torch.linalg.vector_norm(
-            x - znew[None, :], dim=1)) if probe else (None, None))
+        self._client_norms = ((cl_nrm, per_client_norms(x, znew, mesh))
+                              if probe else (None, None))
         params = state.params
         if self.algo.writeback:
             wrote = codec.put_trainable_stack(
-                params, order, mask, znew.unsqueeze(0).expand(K, -1))
+                params, order, mask, znew.unsqueeze(0).expand(self.n_rows, -1))
             # only the round's accepted participants receive z
             params = _sel(w, wrote, params) if partial else wrote
         if partial:
@@ -1048,23 +1088,26 @@ class BlockwiseFederatedTrainer(RoundKernel):
         """Per-client metric over the whole test set (the wrap-pad rows
         weighted out): top-1 accuracy (%) for the classifiers."""
         totals = []
-        for k in range(self.cfg.K):
-            pk = tree_map(lambda t: t[k], state.params)
-            bsk = tree_map(lambda t: t[k], state.batch_stats)
+        for j in range(self.n_rows):
+            pk = tree_map(lambda t: t[j], state.params)
+            bsk = tree_map(lambda t: t[j], state.batch_stats)
             acc = torch.zeros((), dtype=torch.float32, device=self.device)
             for b in range(self.test_x.shape[0]):
                 acc = acc + self.eval_batch_metric(
-                    pk, bsk, _normalize_u8(self.test_x[b], self.client_norm[k]),
+                    pk, bsk, _normalize_u8(self.test_x[b], self.client_norm[j]),
                     self.test_y[b], self.test_w[b])
             totals.append(acc)
-        return self.eval_finalize(torch.stack(totals).cpu().numpy(),
-                                  self.test_n)
+        totals = self.mesh.gather_rows(torch.stack(totals))
+        return self.eval_finalize(totals.cpu().numpy(), self.test_n)
 
     def _serve_export(self, state: ClientState):
         """The served consensus: the mean over the [K] client stack of
         (params, batch_stats), computed into new tensors (a read: the
-        trainer keeps using ``state``)."""
-        return consensus_weights((state.params, state.batch_stats))
+        trainer keeps using ``state``); on a rank mesh over the gathered
+        stack."""
+        full = lambda t: tree_map(self._full_leaf, t)
+        return consensus_weights((full(state.params),
+                                  full(state.batch_stats)))
 
     def _build_serve_plane(self, sched) -> dict:
         """The serving runtime of the classifier-shaped engines: the head
@@ -1155,14 +1198,20 @@ class BlockwiseFederatedTrainer(RoundKernel):
                      history) -> None:
         nloop, ci, nadmm = nxt
         mid_block = nadmm > 0
-        tree = {**ckpt.flatten_dict(state.params, "params/"),
-                **ckpt.flatten_dict(state.batch_stats, "batch_stats/")}
+        # the whole K-client tree (gathered across the ranks; every rank
+        # enters the collective save, rank 0 writes)
+        full = self._full_leaf
+        tree = {**ckpt.flatten_dict(tree_map(full, state.params), "params/"),
+                **ckpt.flatten_dict(tree_map(full, state.batch_stats),
+                                    "batch_stats/")}
         if mid_block:       # block vars matter only inside a block
-            for i, leaf in enumerate(leaves(state.opt_state)):
+            for i, leaf in enumerate(self._full_opt_leaves(state.opt_state)):
                 tree[f"opt/{i}"] = torch.as_tensor(leaf)
             for i, leaf in enumerate(leaves(state.comp)):
-                tree[f"comp/{i}"] = leaf
-            tree.update(zip(("z", "y", "rho", "x0", "yhat0"), blockvars))
+                tree[f"comp/{i}"] = full(leaf)
+            z, y, rho, x0, yhat0 = blockvars
+            tree.update(z=z, y=full(y), rho=rho, x0=full(x0),
+                        yhat0=full(yhat0))
         meta = {
             "nloop": nloop, "ci": ci, "nadmm": nadmm,
             "mid_block": int(mid_block),
@@ -1185,11 +1234,13 @@ class BlockwiseFederatedTrainer(RoundKernel):
         # statistics, optimizer and codec state, EF residuals, y, x0,
         # yhat0) or replicated (z, rho); the padded [K, D*seg] stacks of
         # the fused collective and the chunked estimators live inside a
-        # round only, so nothing saved depends on D
-        ckpt.validate_geometry(meta, devices=self.D, processes=1,
+        # round only, so nothing saved depends on D.  Each process restores
+        # its own rows of the whole tree, so nothing saved depends on P
+        ckpt.validate_geometry(meta, devices=self.D,
+                               processes=self.mesh.processes,
                                K=self.cfg.K, elastic=self.cfg.elastic_resume)
         dev = self.device
-        on_dev = lambda t: tree_map(lambda v: v.to(dev), t)
+        on_dev = lambda t: tree_map(lambda v: self._own_leaf(v).to(dev), t)
         params = on_dev(ckpt.unflatten_dict(tree, "params/"))
         batch_stats = on_dev(ckpt.unflatten_dict(tree, "batch_stats/"))
         mid = bool(meta["mid_block"])
@@ -1197,14 +1248,18 @@ class BlockwiseFederatedTrainer(RoundKernel):
         if mid:
             ci = int(meta["ci"])
             n_opt = sum(1 for k in tree if k.startswith("opt/"))
-            opt = unflatten_like(self.init_opt(params, ci),
-                                 [tree[f"opt/{i}"] for i in range(n_opt)])
+            template = self.init_opt(params, ci)
+            opt = unflatten_like(template, self._own_opt_leaves(
+                template, [tree[f"opt/{i}"] for i in range(n_opt)]))
             comp = self._init_comp_state(ci)
             if comp is not None:
-                comp = unflatten_like(comp, [tree[f"comp/{i}"] for i in
-                                             range(len(leaves(comp)))])
-            blockvars = tuple(tree[k].to(dev)
-                              for k in ("z", "y", "rho", "x0", "yhat0"))
+                comp = unflatten_like(comp, [
+                    self._own_leaf(tree[f"comp/{i}"])
+                    for i in range(len(leaves(comp)))])
+            blockvars = tuple(
+                (self._own(tree[k]) if k in ("y", "x0", "yhat0")
+                 else tree[k]).to(dev)
+                for k in ("z", "y", "rho", "x0", "yhat0"))
         state = ClientState(params, batch_stats, opt, comp)
         # a pending prefetch whose counter differs is dropped at the next
         # _stage_epoch (epochs are pure functions of the counter)
@@ -1315,9 +1370,13 @@ class BlockwiseFederatedTrainer(RoundKernel):
         # must not fire again
         self._preempt_armed = resume_at is None
         self._campaign_resume_floor(resume_at is not None, len(history))
-        if cfg.async_checkpoint and checkpoint_path is not None \
-                and self._ckpt_writer is None:
-            self._ckpt_writer = ckpt.AsyncCheckpointWriter()
+        if cfg.async_checkpoint and checkpoint_path is not None:
+            # multi-process runs keep the synchronous, collective save
+            if self.mesh.processes > 1:
+                log("WARNING: async_checkpoint is single-process only; "
+                    "multi-host runs keep the synchronous save")
+            elif self._ckpt_writer is None:
+                self._ckpt_writer = ckpt.AsyncCheckpointWriter()
         obs = self._open_obs(resumed=resume_at is not None,
                              rounds_prior=len(history))
         if obs.control is not None:
@@ -1343,24 +1402,31 @@ class BlockwiseFederatedTrainer(RoundKernel):
                     resume_at = None
                 else:
                     resume_at = None
+                    R = self.n_rows
                     z = torch.zeros(N, **f32)
-                    y = torch.zeros(K, N if algo.needs_dual else 1, **f32)
+                    y = torch.zeros(R, N if algo.needs_dual else 1, **f32)
                     rho = torch.tensor(cfg.admm_rho0, **f32)
-                    x0 = torch.zeros(K, N if cfg.bb_update else 1, **f32)
+                    x0 = torch.zeros(R, N if cfg.bb_update else 1, **f32)
                     yhat0 = (codec.get_trainable_stack(
                         state.params, self.order, self.mask_for_block(ci))
-                        if cfg.bb_update else torch.zeros(K, 1, **f32))
+                        if cfg.bb_update else torch.zeros(R, 1, **f32))
                     state = ClientState(state.params, state.batch_stats,
                                         self.init_opt(state.params, ci),
                                         self._init_comp_state(ci))
                     # a fresh block: fresh guard scale, async updates void
                     self._reset_block_ledgers()
                 for nadmm in range(nadmm_start, cfg.Nadmm):
-                    with round_trace(len(history), enabled=profile_on):
-                        state, z, y, rho, x0, yhat0 = self._step_round(
-                            obs, obs_images, state, (z, y, rho, x0, yhat0),
-                            nloop, ci, nadmm, N, history, checkpoint_path,
-                            log)
+                    try:
+                        with round_trace(len(history), enabled=profile_on):
+                            state, z, y, rho, x0, yhat0 = self._step_round(
+                                obs, obs_images, state,
+                                (z, y, rho, x0, yhat0), nloop, ci, nadmm,
+                                N, history, checkpoint_path, log)
+                    except CollectiveTimeoutError as e:
+                        # a lost peer: name the round for the supervisor
+                        if e.round_index is None:
+                            e.round_index = len(history)
+                        raise
         obs.close()
         # write barrier: every queued save is durable before the caller
         # sees the run finished (a failed background save surfaces here)
@@ -1405,6 +1471,10 @@ class BlockwiseFederatedTrainer(RoundKernel):
         t_round = time.perf_counter()
         self._sanitize_round = len(history)
         launches0 = _launch_counts()
+        if self.mesh.processes > 1 and barrier_timeout() > 0:
+            # with the bound armed a round starts at a bounded fence, so a
+            # peer lost since the last round surfaces at a barrier
+            sync_global("round")
         # the campaign tick first: it derives this round's fault spec (and
         # may raise its deterministic preemption) before any family draws
         self._campaign_tick(len(history), nloop, ci, nadmm, checkpoint_path)
@@ -1420,7 +1490,8 @@ class BlockwiseFederatedTrainer(RoundKernel):
                 state = state._replace(
                     comp=self._population_swap_comp(state.comp, ci))
             rows = (self._cohort % K).astype(np.int64)
-            cnorm = torch.from_numpy(self._client_norm_host[rows]).to(dev)
+            cnorm = torch.from_numpy(
+                self._own(self._client_norm_host[rows])).to(dev)
         if (self._churn_live and self._rejoined_mask.any()
                 and leaves(state.comp)):
             # rejoining clients are new clients: fresh rows
@@ -1491,8 +1562,9 @@ class BlockwiseFederatedTrainer(RoundKernel):
                     # prints, federated_multi.py:199-200): the only host
                     # sync inside the epoch loop
                     log(f"verbose: block={ci} nadmm={nadmm} epoch={nepoch} "
-                        "client_loss=" + np.array2string(losses.cpu().numpy(),
-                                                         precision=4))
+                        "client_loss=" + np.array2string(
+                            self.mesh.gather_rows(losses).cpu().numpy(),
+                            precision=4))
                 if obs.enabled and not fused:
                     self._obs_sync(obs)
                     if ahead is None:
@@ -1634,12 +1706,15 @@ class BlockwiseFederatedTrainer(RoundKernel):
     def _round_values(self, loss_acc, rho, diag, okf) -> list:
         """The tensors a round reads to the host, in :meth:`_step_round`'s
         order: the [K] losses, rho, the diagnostics, the guard verdicts
-        (guard on) and the client record's two [K] norms (record on)."""
-        vals = [loss_acc, rho, *diag.values()]
+        (guard on) and the client record's two [K] norms (record on).  The
+        per-client values are gathered whole from the ranks (``fetch``),
+        so every rank reads the same records."""
+        full = self.mesh.gather_rows
+        vals = [full(loss_acc), rho, *diag.values()]
         if okf is not None:
-            vals.append(okf)
+            vals.append(full(okf))
         if self._client_norms[0] is not None:
-            vals.extend(self._client_norms)
+            vals.extend(full(t) for t in self._client_norms)
         return vals
 
     def run_independent(self, state: Optional[ClientState] = None,
@@ -1663,7 +1738,7 @@ class BlockwiseFederatedTrainer(RoundKernel):
         state = state or self.init_state()
         f32 = dict(dtype=torch.float32, device=self.device)
         z = torch.zeros(1, **f32)
-        y = torch.zeros(cfg.K, 1, **f32)
+        y = torch.zeros(self.n_rows, 1, **f32)
         rho = torch.tensor(cfg.admm_rho0, **f32)
         history: List[Dict[str, Any]] = []
         obs = self._open_obs(resumed=False, rounds_prior=0)
@@ -1678,7 +1753,7 @@ class BlockwiseFederatedTrainer(RoundKernel):
             state, losses = self.train_epoch(state, None, y, z, rho,
                                              xb, yb, wb, counter)
             self._host_dispatches += 1
-            loss_host = losses.cpu().numpy()
+            loss_host = self.mesh.gather_rows(losses).cpu().numpy()
             rec = dict(epoch=epoch, loss=float(np.sum(loss_host)),
                        epoch_seconds=time.perf_counter() - t_epoch,
                        host_dispatches=1)

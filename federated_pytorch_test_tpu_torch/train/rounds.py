@@ -16,6 +16,9 @@ Host-class contract (what the mixin reads):
 ``self.cfg``                a :class:`~.config.FederatedConfig`
 ``self.algo``               strategy with ``.name``/``.communicates``
 ``self.D``                  the client mesh's device count
+``self.mesh``               the client mesh (``.processes``)
+``self.n_rows``, ``_own``   this process's client-row count, and its
+                            rows of a ``[K, ...]`` array
 ``self.device``             the trainer's torch device
 ``self.obs_engine``         engine tag of the obs records
 ``self.obs_run_name``       run name override (drivers set it) or None
@@ -24,8 +27,8 @@ Host-class contract (what the mixin reads):
 ``_save_midrun``            ``(path, state, blockvars, nxt, history)``
                             (reached from ``_health_abort``)
 ``_flush_ckpt_writer()``    the async writer's barrier
-``_init_comp_state(ci)``    fresh [K]-stacked compressor state of block
-                            ``ci`` (reached from ``_reset_comp_rows``)
+``_init_comp_state(ci)``    fresh compressor state of block ``ci``, this
+                            process's rows (from ``_reset_comp_rows``)
 ``_build_serve_plane``      ``(sched) -> dict`` and ``_serve_export``
                             ``(state) -> weights``: the serving adapter
                             (the base raises "no serving adapter")
@@ -64,7 +67,10 @@ from federated_pytorch_test_tpu_torch.obs.health import (
     RunHealthAbort,
     monitor_from_config,
 )
-from federated_pytorch_test_tpu_torch.parallel.mesh import CollectiveTimeoutError
+from federated_pytorch_test_tpu_torch.parallel.mesh import (
+    CollectiveTimeoutError,
+    configure_barrier_timeout,
+)
 from federated_pytorch_test_tpu_torch.population import ClientRegistry
 from federated_pytorch_test_tpu_torch.population.sampler import SAMPLER_CHOICES
 from federated_pytorch_test_tpu_torch.serve.batcher import SERVE_TAG, ServeSchedule
@@ -74,7 +80,7 @@ from federated_pytorch_test_tpu_torch.utils.checkpoint import (
     finalize_checkpoint,
     mesh_geometry_meta,
 )
-from federated_pytorch_test_tpu_torch.utils.tree import map_leaves
+from federated_pytorch_test_tpu_torch.utils.tree import leaves, map_leaves
 
 
 class RoundKernel:
@@ -272,6 +278,12 @@ class RoundKernel:
         if cfg.restart_backoff < 0:
             raise ValueError(
                 f"restart_backoff={cfg.restart_backoff} must be >= 0")
+        if cfg.barrier_timeout < 0:
+            raise ValueError(
+                f"barrier_timeout={cfg.barrier_timeout} must be >= 0 "
+                "(0 disables the bounded wait)")
+        if cfg.barrier_timeout > 0:
+            configure_barrier_timeout(cfg.barrier_timeout)
 
     # ------------------------------------------------------------------
     # per-round activity: participation x quarantine x faults x churn
@@ -576,11 +588,12 @@ class RoundKernel:
         (rejoining clients) to block ``ci``'s fresh init; leaves whose
         leading axis is not the client stack pass through."""
         fresh = self._init_comp_state(ci)
-        K = self.cfg.K
+        rows = self.n_rows
+        mask = self._own(np.asarray(mask))
 
         def sel(cur, new):
             if not isinstance(cur, torch.Tensor) or cur.dim() == 0 \
-                    or cur.shape[0] != K:
+                    or cur.shape[0] != rows:
                 return cur
             m = torch.as_tensor(mask, device=cur.device)
             return torch.where(m.reshape((-1,) + (1,) * (cur.dim() - 1)),
@@ -701,6 +714,48 @@ class RoundKernel:
                 else 0.5 * self._guard_scale + 0.5 * nm)
 
     # ------------------------------------------------------------------
+    # this process's client rows (all K with one process)
+    # ------------------------------------------------------------------
+    def _own(self, a):
+        """This process's rows of a host or device ``[K, ...]`` array."""
+        if self.mesh.processes == 1:
+            return a
+        return a[self.rows.start:self.rows.stop]
+
+    def _own_leaf(self, t):
+        """:meth:`_own` of a leaf whose leading axis is the client axis;
+        other leaves pass through."""
+        if isinstance(t, torch.Tensor) and t.dim() >= 1 \
+                and t.shape[0] == self.cfg.K:
+            return self._own(t)
+        return t
+
+    def _full_leaf(self, t):
+        """The whole ``[K, ...]`` of a leaf of this process's client rows
+        (gathered across the ranks); other leaves pass through."""
+        if self.mesh.processes > 1 and isinstance(t, torch.Tensor) \
+                and t.dim() >= 1 and t.shape[0] == self.n_rows:
+            return self.mesh.gather_rows(t)
+        return t
+
+    def _full_opt_leaves(self, opt) -> list:
+        """The leaves of the whole K-client optimizer state: Adam's stacks
+        gathered, or every client's L-BFGS state in client order."""
+        if isinstance(opt, list):
+            return leaves(self.mesh.gather_objects(opt))
+        return [self._full_leaf(torch.as_tensor(t)) for t in leaves(opt)]
+
+    def _own_opt_leaves(self, template, full: list) -> list:
+        """This process's share of ``full``, the leaves
+        :meth:`_full_opt_leaves` saved, for ``template``'s structure: its
+        clients' L-BFGS states (client after client), or its rows of
+        Adam's stacks."""
+        if isinstance(template, list):
+            per = len(full) // self.cfg.K
+            return full[self.rows.start * per:self.rows.stop * per]
+        return [self._own_leaf(t) for t in full]
+
+    # ------------------------------------------------------------------
     # ledger checkpoint meta
     # ------------------------------------------------------------------
     def _ledger_meta(self) -> dict:
@@ -708,7 +763,7 @@ class RoundKernel:
         churn membership, guard, async and registry ledgers."""
         meta = {}
         meta.update(mesh_geometry_meta(
-            devices=self.D, processes=1, K=self.cfg.K,
+            devices=self.D, processes=self.mesh.processes, K=self.cfg.K,
             members=self._members if self._churn_live else None))
         if self._churn_live:
             meta["members_joined"] = np.asarray(self._members_joined,

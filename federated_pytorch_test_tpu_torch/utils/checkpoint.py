@@ -16,6 +16,12 @@ The mid-run checkpoint is crash-safe as in the JAX package: a save goes to
 at ``path.old`` (:func:`save_checkpoint_swapped`); :func:`checkpoint_slots`
 lists them newest first, and a resume walks that list past a slot that
 fails its checksum.  The port reads no checkpoint of the JAX package.
+
+With several processes (``parallel/mesh.py`` ``RankMesh``) a save is
+collective: every rank enters with the whole tree (the engines gather
+it), process 0 alone writes it and does the slot surgery, between the
+``fedtpu:ckpt:*`` barriers of the JAX package (``sync_global``, bounded
+by ``--barrier-timeout``), and each rank restores its own client rows.
 """
 
 from __future__ import annotations
@@ -181,12 +187,35 @@ def unflatten_dict(flat: Dict[str, Any], prefix: str) -> Dict[str, Any]:
     return out
 
 
+def _is_primary() -> bool:
+    from federated_pytorch_test_tpu_torch.parallel.mesh import process_index
+
+    return process_index() == 0
+
+
+def _barrier(tag: str) -> None:
+    """Cross-process sync so that only process 0 touches the slots while
+    its peers wait (a no-op with one process), through the bounded wait:
+    a peer lost to preemption surfaces as ``CollectiveTimeoutError``."""
+    from federated_pytorch_test_tpu_torch.parallel.mesh import sync_global
+
+    sync_global(tag)
+
+
 def save_checkpoint(path: str, tree: Dict[str, torch.Tensor],
                     meta: Optional[Dict[str, Any]] = None) -> None:
     """Save the flat dict of tensors ``tree`` (+ the small ``meta`` dict)
-    as the checkpoint directory ``path``, replacing one that exists.  The
-    files are written into a scratch directory beside ``path`` and renamed
-    into place once complete."""
+    as the checkpoint directory ``path``, replacing one that exists.
+    Collective: process 0 writes, the others wait at the barrier."""
+    if _is_primary():
+        _write_checkpoint(path, tree, meta)
+    _barrier("fedtpu:ckpt:saved")
+
+
+def _write_checkpoint(path: str, tree: Dict[str, torch.Tensor],
+                      meta: Optional[Dict[str, Any]] = None) -> None:
+    """The write of :func:`save_checkpoint`: the files go into a scratch
+    directory beside ``path`` and are renamed into place once complete."""
     root = _abspath(path)
     os.makedirs(os.path.dirname(root), exist_ok=True)
     tmp = f"{root}{_TMP_TAG}{os.getpid()}-{uuid.uuid4().hex[:8]}"
@@ -283,15 +312,24 @@ def save_checkpoint_swapped(path: str, tree: Dict[str, torch.Tensor],
                             meta: Optional[Dict[str, Any]] = None) -> None:
     """Crash-safe :func:`save_checkpoint`: never deletes the only complete
     checkpoint while the replacement is still being written (see
-    :func:`checkpoint_slots`)."""
+    :func:`checkpoint_slots`).  Collective: every process enters, and the
+    slot surgery, the write and the swap run on process 0 only, between
+    barriers, so skewed peers never see a half-moved slot."""
     nxt_path, old_path = _abspath(path + ".next"), _abspath(path + ".old")
     root = _abspath(path)
-    _promote_and_sweep(path)
-    save_checkpoint(nxt_path, tree, meta)
-    shutil.rmtree(old_path, ignore_errors=True)
-    if os.path.isdir(root):
-        os.rename(root, old_path)
-    os.rename(nxt_path, root)
+    primary = _is_primary()
+    if primary:
+        _promote_and_sweep(path)
+    _barrier("fedtpu:ckpt:pre-save")
+    if primary:
+        _write_checkpoint(nxt_path, tree, meta)
+    _barrier("fedtpu:ckpt:post-save")
+    if primary:
+        shutil.rmtree(old_path, ignore_errors=True)
+        if os.path.isdir(root):
+            os.rename(root, old_path)
+        os.rename(nxt_path, root)
+    _barrier("fedtpu:ckpt:swapped")
     # path.old (the previous round) is kept: the fallback when the primary
     # later fails its checksum
 

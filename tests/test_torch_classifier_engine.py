@@ -59,6 +59,9 @@ from federated_pytorch_test_tpu_torch.models.resnet import (
     masked_batch_norm,
 )
 from federated_pytorch_test_tpu_torch.models.simple import Net as TNet
+from federated_pytorch_test_tpu_torch.parallel.comm import (
+    sharded_federated_mean,
+)
 from federated_pytorch_test_tpu_torch.parallel.mesh import ClientMesh
 from federated_pytorch_test_tpu_torch.train import algorithms as talg
 from federated_pytorch_test_tpu_torch.train.config import FederatedConfig as TConfig
@@ -313,7 +316,8 @@ def test_unported_knobs_are_refused(argv, field):
         [getattr(consensus_multi.DEFAULTS, f) for f in KNOBS if f != field]
     t = common.make_trainer(cfg, talg.AdmmConsensus(), args.n_train,
                             args.n_test)
-    engine = {"sharded_update": t.cfg.sharded_update and t.mean_fn is None,
+    engine = {"sharded_update": getattr(t.mean_fn, "func", None)
+              is sharded_federated_mean,
               "device_data": t._dev_x is not None,
               "fused_rounds": t._use_fused,
               "overlap_round": t._overlap_round}

@@ -7,9 +7,11 @@ indices the host path gathers), ``overlap_staging``, ``overlap_round`` and
 ``fused_rounds`` (one host call a round), at K=4 over two blocks with two
 local epochs a round; the fused round with the q8 fused collective at D=2;
 the round overlap with the chunked krum at D=2 (the VAE-CL run is in
-``test_torch_knobs_vae.py``).  ``sharded_update`` is served by the
-replicated mean on the one-card mesh: it is held within ``rtol=2e-5``,
-``atol=1e-6`` (the JAX package's declared band) and is bitwise here.  A run killed after a mid-block round and resumed with the
+``test_torch_knobs_vae.py``).  ``sharded_update`` runs the
+reduce-scatter of the shard sums, the divide on the owned segment and the
+all-gather: it is held within ``rtol=2e-5``, ``atol=1e-6`` (the JAX
+package's declared band) and is bitwise here, each coordinate being the
+replicated mean's ordered sum and division.  A run killed after a mid-block round and resumed with the
 knob flipped ends bit for bit where the uninterrupted run does.  Every run
 pins one torch thread (``torch_threads``), so that two runs in one
 process sum alike.
@@ -22,6 +24,9 @@ from _torch_engine_pair import torch_threads
 
 from federated_pytorch_test_tpu_torch.data.cifar10 import FederatedCifar10
 from federated_pytorch_test_tpu_torch.models.simple import Net
+from federated_pytorch_test_tpu_torch.parallel.comm import (
+    sharded_federated_mean,
+)
 from federated_pytorch_test_tpu_torch.train import algorithms as alg
 from federated_pytorch_test_tpu_torch.train.config import FederatedConfig
 from federated_pytorch_test_tpu_torch.train.engine import (
@@ -128,7 +133,9 @@ def test_sharded_update_within_the_declared_band():
     for x, y in zip(leaves(a[1].params), leaves(b[1].params)):
         np.testing.assert_allclose(y.numpy(), x.numpy(), rtol=2e-5,
                                    atol=1e-6)
-    # the one-card mesh takes the replicated mean for it
+    # each coordinate is the replicated mean's ordered sum and division
+    assert b[0].mean_fn.func is sharded_federated_mean
+    assert a[0].mean_fn is None
     assert_same(a, b)
 
 

@@ -11,10 +11,10 @@ the CPC trainer) raises the JAX message.
 
 The JAX package's ``sharded_federated_mean`` inside ``shard_map`` on the
 virtual CPU mesh at D = 2 and 3, K = 6, N = 301 (padded to D segments),
-against the mean that serves ``--sharded-update`` in the port on its
-one-card mesh, the replicated ``_active_mean``: with no weights, with
-weights and with every client rejected, within rtol 2e-5 (the JAX
-package's declared band against the replicated mean).
+against the port's ``sharded_federated_mean``, which serves
+``--sharded-update``: with no weights, with weights and with every client
+rejected, within rtol 2e-5 (the JAX package's declared band against the
+replicated mean).
 """
 
 import warnings
@@ -46,7 +46,9 @@ from federated_pytorch_test_tpu_torch.data.cifar10 import FederatedCifar10 as TD
 from federated_pytorch_test_tpu_torch.models.simple import Net as TNet
 from federated_pytorch_test_tpu_torch.parallel.mesh import ClientMesh
 from federated_pytorch_test_tpu_torch.train import algorithms as talg
-from federated_pytorch_test_tpu_torch.train.algorithms import _active_mean
+from federated_pytorch_test_tpu_torch.parallel.comm import (
+    sharded_federated_mean,
+)
 from federated_pytorch_test_tpu_torch.train.config import FederatedConfig as TConfig
 from federated_pytorch_test_tpu_torch.train.engine import (
     BlockwiseFederatedTrainer as TTrainer,
@@ -162,7 +164,8 @@ def test_sharded_mean_matches_jax(D, weights):
          "all_rejected": np.zeros(6, np.float32)}[weights]
     want = _jax_sharded(x, w, D)
     tw = None if w is None else torch.from_numpy(w)
-    got = _active_mean(torch.from_numpy(x), tw, 6, ClientMesh(D))
+    got = sharded_federated_mean(torch.from_numpy(x), tw, K=6,
+                                 mesh=ClientMesh(D))
     assert got.shape == (301,)
     np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=1e-6)
     if weights == "all_rejected":

@@ -23,6 +23,9 @@ import torch
 from _torch_tmp_cwd import tmp_cwd  # noqa: F401
 
 from federated_pytorch_test_tpu_torch.drivers import common, federated_vae, federated_vae_cl
+from federated_pytorch_test_tpu_torch.parallel.comm import (
+    sharded_federated_mean,
+)
 
 DRIVERS = {"federated_vae": federated_vae, "federated_vae_cl": federated_vae_cl}
 SILENT = lambda m: None
@@ -60,7 +63,8 @@ def test_driver_refuses_unported_knobs(name, flag):
     field = flag[2:].replace("-", "_")
     t = DRIVERS[name].build([*TINY, flag])
     assert getattr(t.cfg, field) is True
-    engine = {"sharded_update": t.cfg.sharded_update and t.mean_fn is None,
+    engine = {"sharded_update": getattr(t.mean_fn, "func", None)
+              is sharded_federated_mean,
               "device_data": t._dev_x is not None,
               "fused_rounds": t._use_fused,
               "overlap_round": t._overlap_round}
