@@ -1,0 +1,9 @@
+"""``device_idle_pct``: the share of the traced window in which nothing
+ran on the card (``trace.reduce``'s union of device events)."""
+
+
+def read(ctx):
+    tr = ctx.trace
+    if not tr or tr["window_s"] <= 0 or tr["busy_s"] <= 0:
+        return None
+    return 100.0 * (1.0 - tr["busy_s"] / tr["window_s"])
