@@ -3,9 +3,11 @@
 Port of ``federated_pytorch_test_tpu/obs/recorder.py``: the same records,
 validated by the same schema.  The run header names the platform
 (``"gpu"`` or ``"cpu"``), the torch version and, on a card, the CUDA
-version and the card's name; the round records carry the CUDA allocator's
-memory counters (:func:`device_memory_stats`).  The port emits no
-``compile`` records.
+version and the card's name, and ``clock_offset_ns``
+(:func:`clock_offset_ns`), which maps the stream's ``perf_counter`` stamps
+onto the clock of ``torch.profiler``'s events; the round records carry the
+CUDA allocator's memory counters (:func:`device_memory_stats`).  The port
+emits no ``compile`` records.
 
 Lifecycle::
 
@@ -63,6 +65,21 @@ def device_memory_stats(device=None) -> Dict[str, int]:
     return {"mem_bytes_in_use": int(torch.cuda.memory_allocated(device)),
             "mem_peak_bytes_in_use":
                 int(torch.cuda.max_memory_allocated(device))}
+
+
+def clock_offset_ns(tries: int = 5) -> int:
+    """``time.time_ns() - time.perf_counter_ns()``, from the pair read with
+    the smallest gap out of ``tries``: a stream stamp ``t`` (perf_counter
+    seconds) lies at ``t * 1e9 + offset`` on ``time.time_ns``'s clock,
+    the clock of ``torch.profiler``'s events."""
+    best = None
+    for _ in range(tries):
+        a = time.time_ns()
+        p = time.perf_counter_ns()
+        b = time.time_ns()
+        if best is None or b - a < best[0]:
+            best = (b - a, (a + b) // 2 - p)
+    return best[1]
 
 
 def git_rev() -> Optional[str]:
@@ -191,6 +208,7 @@ class RunRecorder:
             "torch_version": torch.__version__,
             "resumed": bool(resumed), "rounds_prior": int(rounds_prior),
             "host": socket.gethostname(), "pid": os.getpid(),
+            "clock_offset_ns": clock_offset_ns(),
         }
         if cuda:
             rec["cuda_version"] = torch.version.cuda

@@ -241,6 +241,9 @@ FIELDS: Dict[str, Any] = {
     "rounds_prior": (("run_header",), _INT),
     "host":         (("run_header",), _STR),
     "pid":          (("run_header",), _INT),
+    # time.time_ns() - time.perf_counter_ns() at open (the port): maps
+    # t_start/t_end onto torch.profiler's clock (additive, no bump)
+    "clock_offset_ns": (("run_header",), _INT),
     # round coordinates (spans and alerts are keyed to the same index the
     # XProf round_trace annotations use, so all three timelines correlate)
     "round_index":  (("round", "span", "alert", "compile", "control",
@@ -281,6 +284,17 @@ FIELDS: Dict[str, Any] = {
     "overlap_seconds": (("round",), _NUM),
     # whole-round overlap (schema v14; --overlap-round)
     "overlap_dispatch_seconds": (("round",), _NUM),
+    # the port's round instrumentation (additive, no bump; present while
+    # a recorder writes): host enqueue time of the local epoch and of its
+    # client-steps' phases, evaluation, the comm step's CUDA-event time
+    # (on a card) and the round's host waits on the card
+    "epoch_host_seconds": (("round",), _NUM),
+    "step_forward_seconds": (("round",), _NUM),
+    "step_backward_seconds": (("round",), _NUM),
+    "step_optimizer_seconds": (("round",), _NUM),
+    "eval_seconds": (("round",), _NUM),
+    "comm_device_seconds": (("round",), _NUM),
+    "host_syncs": (("round",), _INT),
     # fault / guard counters
     "guard_trips":  (("round",), _NUM),
     "guard_norm_mean": (("round",), _NUM),

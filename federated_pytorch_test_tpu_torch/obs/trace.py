@@ -28,13 +28,26 @@ A resumed run appends a new segment (new ``run_header``) whose
 perf_counter base belongs to a DIFFERENT process, so segments are split
 at headers — one trace pid per segment — and anchored to wall clock via
 the headers' ``time_unix`` deltas.
+
+``--device-trace <profile-dir>/trace.json`` instead places a
+``--profile-dir`` capture's device events (kernels, copies, sets) on the
+stream's timeline through the header's ``clock_offset_ns`` and prints the
+card's idle gaps, each labelled with the innermost program span or
+``record_function`` range (``comm_round#<n>``, the step phases, the comm
+step's parts, the evaluation) covering its start, and how far each
+``comm_round#<n>`` range starts from round n's record (the clock check)::
+
+    python -m federated_pytorch_test_tpu_torch.obs.trace run.jsonl \
+        --device-trace prof/trace.json
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import re
 import sys
+from collections import defaultdict
 from typing import Any, Dict, List, Optional, Tuple
 
 from federated_pytorch_test_tpu_torch.obs.schema import SchemaError
@@ -235,6 +248,145 @@ def validate_chrome_trace(trace: Dict[str, Any]) -> None:
                 f"parent {parent} [{plo:.1f}, {phi:.1f}]")
 
 
+#: chrome-trace categories of the card's own work (kineto's names)
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+#: the label of a gap that no span or range covers
+ELSEWHERE = "outside every span"
+_ROUND_RANGE = re.compile(r"^comm_round#(\d+)$")
+
+
+def innermost(spans: List[Tuple[int, int, str]], points: List[int],
+              default: str = ELSEWHERE) -> List[str]:
+    """For each point (ascending), the label of the innermost span (spans
+    properly nested) that covers it, else ``default``."""
+    spans = sorted(spans, key=lambda s: (s[0], -s[1]))
+    names, stack, i = [], [], 0
+    for p in points:
+        while i < len(spans) and spans[i][0] <= p:
+            while stack and stack[-1][1] <= spans[i][0]:
+                stack.pop()
+            stack.append(spans[i])
+            i += 1
+        while stack and stack[-1][1] <= p:
+            stack.pop()
+        names.append(stack[-1][2] if stack else default)
+    return names
+
+
+def _union(intervals: List[Tuple[int, int]]) -> List[Tuple[int, int]]:
+    merged: List[List[int]] = []
+    for s, e in sorted(intervals):
+        if merged and s <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], e)
+        else:
+            merged.append([s, e])
+    return [(s, e) for s, e in merged]
+
+
+def _profile_events(trace: Dict[str, Any]):
+    """The device events' and the ``record_function`` ranges' intervals
+    of a ``torch.profiler`` Chrome trace, in ``time.time_ns`` ns: ``ts``
+    is microseconds after ``baseTimeNanoseconds`` (0 when absent)."""
+    base = int(trace.get("baseTimeNanoseconds", 0))
+    device, ranges = [], []
+    for e in trace.get("traceEvents", []):
+        if e.get("ph") != "X":
+            continue
+        cat = str(e.get("cat", "")).lower()
+        if cat not in DEVICE_CATS and cat != "user_annotation":
+            continue
+        s = base + round(float(e["ts"]) * 1e3)
+        t = s + round(float(e.get("dur", 0)) * 1e3)
+        if cat == "user_annotation":
+            ranges.append((s, t, str(e.get("name", "range"))))
+        else:
+            device.append((s, t))
+    return device, ranges
+
+
+def device_idle(records: List[Dict[str, Any]], trace: Dict[str, Any],
+                from_round: int = 0) -> Dict[str, Any]:
+    """The card's idle gaps of a profiled run by program phase.  The
+    stream's last segment whose header carries ``clock_offset_ns`` is
+    mapped onto the profiler's clock; the window runs from the first
+    ``comm_round#<n>`` range's start to the last one's end, rounds before
+    ``from_round`` left out (the round records' extent without ranges).
+    Returns ``window_s``, ``busy_s``, ``idle_s``, ``gaps`` ({label:
+    [seconds, count]}, labels with a round's index stripped) and
+    ``clock_ms`` ({n: range start minus round n's ``t_start``, ms})."""
+    seg = next((s for s in reversed(_segments(records))
+                if isinstance(s[0].get("clock_offset_ns"), int)), None)
+    if seg is None:
+        raise SchemaError("no run_header with clock_offset_ns: the stream "
+                          "cannot be placed on the profiler's clock")
+    off = seg[0]["clock_offset_ns"]
+    ns = lambda t: round(t * 1e9) + off
+    spans, starts = [], {}
+    for s in _spans_in(seg):
+        if s["cat"] == "run":
+            continue            # the run's extent, not a phase
+        name = "round" if s["cat"] == "round" else s["name"]
+        spans.append((ns(s["t_start"]), ns(s["t_end"]), name))
+        if s["cat"] == "round":
+            starts[s["round_index"]] = spans[-1][:2]
+    device, ranges = _profile_events(trace)
+    clock_ms, rounds = {}, []
+    for s, t, name in ranges:
+        m = _ROUND_RANGE.match(name)
+        if m and int(m.group(1)) >= from_round:
+            rounds.append((s, t))
+            n = int(m.group(1))
+            if n in starts:
+                clock_ms[n] = (s - starts[n][0]) / 1e6
+        spans.append((s, t, "comm_round" if m else name))
+    extent = rounds or [se for n, se in starts.items() if n >= from_round]
+    if not extent:
+        raise SchemaError("neither comm_round ranges nor round records")
+    w0, w1 = min(s for s, _ in extent), max(t for _, t in extent)
+    busy = _union([(max(s, w0), min(t, w1)) for s, t in device
+                   if t > w0 and s < w1])
+    gaps, t = [], w0
+    for s, e in busy:
+        if s > t:
+            gaps.append((t, s))
+        t = max(t, e)
+    if t < w1:
+        gaps.append((t, w1))
+    by_label: Dict[str, List[float]] = defaultdict(lambda: [0.0, 0])
+    for (s, e), label in zip(gaps, innermost(spans, [g[0] for g in gaps])):
+        by_label[label][0] += (e - s) / 1e9
+        by_label[label][1] += 1
+    busy_s = sum(e - s for s, e in busy) / 1e9
+    return {"window_s": (w1 - w0) / 1e9, "busy_s": busy_s,
+            "idle_s": (w1 - w0) / 1e9 - busy_s,
+            "gaps": dict(sorted(by_label.items(), key=lambda kv: -kv[1][0])),
+            "clock_ms": clock_ms}
+
+
+def print_device_idle(res: Dict[str, Any], file=None) -> None:
+    """Print :func:`device_idle`'s result (to ``file``, default stdout)."""
+    idle = res["idle_s"]
+    print(f"window {res['window_s']:.6f} s, device busy {res['busy_s']:.6f} "
+          f"s, idle {idle:.6f} s "
+          f"({100.0 * idle / max(res['window_s'], 1e-12):.2f}%)", file=file)
+    print("idle gaps by the innermost program span or range at their start:",
+          file=file)
+    print(f"  {'label':<24} {'seconds':>12} {'of idle':>8} {'gaps':>8}",
+          file=file)
+    for label, (sec, n) in res["gaps"].items():
+        print(f"  {label:<24} {sec:12.6f} "
+              f"{100.0 * sec / max(idle, 1e-12):7.2f}% {n:8d}", file=file)
+    total = sum(v[0] for v in res["gaps"].values())
+    print(f"  {'total':<24} {total:12.6f}", file=file)
+    if res["clock_ms"]:
+        d = res["clock_ms"]
+        print(f"clock check: comm_round#<n> range start minus round n's "
+              f"t_start, {len(d)} round(s): "
+              + " ".join(f"{n}:{v:+.3f}" for n, v in sorted(d.items()))
+              + f" ms (max |d| {max(abs(v) for v in d.values()):.3f} ms)",
+              file=file)
+
+
 def export(path: str, out_path: str, validate: bool = True) -> int:
     """Read a run JSONL, write Chrome trace JSON; returns #X events."""
     from federated_pytorch_test_tpu_torch.obs.report import read_records
@@ -300,7 +452,26 @@ def main(argv: Optional[List[str]] = None) -> int:
                    "(default: <input>.trace.json)")
     p.add_argument("--no-validate", action="store_true",
                    help="skip the nesting/containment validation pass")
+    p.add_argument("--device-trace", metavar="TRACE_JSON",
+                   help="a --profile-dir capture's trace.json: print the "
+                        "card's idle gaps by program phase (no export)")
+    p.add_argument("--from-round", type=int, default=0,
+                   help="with --device-trace: leave out the rounds before "
+                        "this index (the first round's one-off set-up)")
     args = p.parse_args(argv)
+    if args.device_trace:
+        from federated_pytorch_test_tpu_torch.obs.report import read_records
+
+        try:
+            with open(args.device_trace) as f:
+                trace = json.load(f)
+            res = device_idle(read_records(args.path), trace,
+                              from_round=args.from_round)
+        except (OSError, ValueError) as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 1
+        print_device_idle(res)
+        return 0
     out = args.output or (args.path + ".trace.json")
     try:
         n = export(args.path, out, validate=not args.no_validate)

@@ -106,6 +106,15 @@ the same records.  With a recorder writing, each phase ends in a device
 sync so that its span measures execution; with obs off the round keeps
 its one sync.  ``cfg.profile_dir`` wraps the run in ``torch.profiler``
 (``utils/profiling.py``).
+
+Inside the round, with a recorder writing, the record also carries the
+host's enqueue time of the local epoch and of each client-step's forward,
+backward and optimizer phases (a ``StepClock``, no sync), the evaluation's
+time, the comm step's device time (CUDA events around it, read after the
+round's wait) and ``host_syncs``, the round's host waits on the card (see
+:meth:`BlockwiseFederatedTrainer._step_round`).  While a profiler records,
+the step phases, the comm step's encode, mean and update, and the
+evaluation are ``record_function`` ranges inside ``comm_round#<n>``.
 """
 
 from __future__ import annotations
@@ -177,7 +186,10 @@ from federated_pytorch_test_tpu_torch.utils import checkpoint as ckpt
 from federated_pytorch_test_tpu_torch.utils import codec
 from federated_pytorch_test_tpu_torch.utils.device import resolve_device
 from federated_pytorch_test_tpu_torch.utils.profiling import (
+    StepClock,
     profile_ctx,
+    profiler_active,
+    ranged,
     round_trace,
 )
 from federated_pytorch_test_tpu_torch.utils.tree import (
@@ -420,6 +432,13 @@ class BlockwiseFederatedTrainer(RoundKernel):
         # host_dispatches: Nepoch a round, 1 when fused; the JAX engine's
         # count of dispatches, here of method calls, not of kernels)
         self._host_dispatches = 0
+        # the round's instrumentation (_step_round): the step clock (None
+        # unless a recorder writes or a profiler records), whether a
+        # profiler records, and the comm step's CUDA events (None unless a
+        # recorder writes on a card)
+        self._step_clock: Optional[StepClock] = None
+        self._ranges = False
+        self._comm_ev = None
         # the staging look-ahead (cfg.overlap_staging): (counter, payload,
         # needs_finish), and the pre-launched epoch (cfg.overlap_round):
         # (coords, counter, (state, losses))
@@ -680,7 +699,9 @@ class BlockwiseFederatedTrainer(RoundKernel):
             raw = tuple(self._own(a) for a in raw)
         host = [raw] if self._dev_x is not None else list(raw)
         if not (ahead and dev.type == "cuda"):
-            out = [torch.from_numpy(a).to(dev) for a in host]
+            # a pageable host-to-device copy waits for the stream
+            with self._host_wait(len(host)):
+                out = [torch.from_numpy(a).to(dev) for a in host]
             return (self._gather_epoch(out[0]) if self._dev_x is not None
                     else tuple(out)), None
         if self._side_stream is None:
@@ -729,7 +750,10 @@ class BlockwiseFederatedTrainer(RoundKernel):
         idx = np.stack([self._epoch_raw(c0 + e, last=c0 + e == total - 1)
                         for e in range(n)])
         self._epochs_staged += n
-        return torch.from_numpy(idx).to(self.device), list(range(c0, c0 + n))
+        # a pageable host-to-device copy waits for the stream
+        with self._host_wait():
+            rows = torch.from_numpy(idx).to(self.device)
+        return rows, list(range(c0, c0 + n))
 
     def _prestage_round(self) -> float:
         """Staging/comm overlap (cfg.overlap_staging): stage the next epoch
@@ -848,9 +872,18 @@ class BlockwiseFederatedTrainer(RoundKernel):
 
     def train_epoch(self, state: ClientState, ci: Optional[int], *args,
                     **kwargs):
-        """:meth:`_train_epoch` as one instrumented step."""
-        with self._sanitized("train step", ci):
-            return self._train_epoch(state, ci, *args, **kwargs)
+        """:meth:`_train_epoch` as one instrumented step; the round's step
+        clock, when it runs, adds the host's stay here to its
+        ``epoch_ns``."""
+        sc = self._step_clock
+        t0 = 0 if sc is None else time.perf_counter_ns()
+        try:
+            with self._sanitized("train step", ci):
+                return self._train_epoch(state, ci, *args, **kwargs)
+        finally:
+            if sc is not None:
+                sc.stop()
+                sc.epoch_ns += time.perf_counter_ns() - t0
 
     def _train_epoch(self, state: ClientState, ci: Optional[int], y, z, rho,
                      xb, yb, wb, counter: int = 0, active=None, norm=None):
@@ -871,6 +904,7 @@ class BlockwiseFederatedTrainer(RoundKernel):
         lr = self.lr_for_block(ci)
         norm = self.client_norm if norm is None else norm
         opt = state.opt_state
+        sc = self._step_clock
         X = codec.get_trainable_stack(state.params, order, mask)
         xs, opts, bss, losses = [], [], [], []
         steps = xb.shape[1]
@@ -907,17 +941,28 @@ class BlockwiseFederatedTrainer(RoundKernel):
 
                 if lbfgs:
                     # the closure is the flat loss of the active block; a
-                    # BN-free model has no statistics to carry
+                    # BN-free model has no statistics to carry; its
+                    # evaluations count as the optimizer's
+                    if sc is not None:
+                        sc.start(StepClock.OPTIMIZER)
                     xk, ok, loss = self.lbfgs.step(
                         lambda v: batch_loss(v)[0], xk, ok)
                 else:
+                    if sc is not None:
+                        sc.start(StepClock.FORWARD)
                     v = xk.detach().requires_grad_(True)
                     loss, bsk = batch_loss(v)
+                    if sc is not None:
+                        sc.start(StepClock.BACKWARD)
                     (g,) = torch.autograd.grad(loss, v)
+                    if sc is not None:
+                        sc.start(StepClock.OPTIMIZER)
                     with torch.no_grad():
                         xk, mu, nu = adam_step(xk, g, *ok,
                                                count0 + step + 1, lr)
                     ok = (mu, nu)
+                if sc is not None:
+                    sc.stop()
                 step_losses.append(loss.detach())
             xs.append(xk)
             opts.append(ok)
@@ -966,9 +1011,16 @@ class BlockwiseFederatedTrainer(RoundKernel):
         return "plain"
 
     def comm_round(self, state: ClientState, ci: int, *args, **kwargs):
-        """:meth:`_comm_round` as one instrumented step."""
+        """:meth:`_comm_round` as one instrumented step, between the
+        round's two CUDA events when a recorder writes on a card."""
         with self._sanitized("comm step", ci):
-            return self._comm_round(state, ci, *args, **kwargs)
+            ev = self._comm_ev
+            if ev is None:
+                return self._comm_round(state, ci, *args, **kwargs)
+            ev[0].record()
+            out = self._comm_round(state, ci, *args, **kwargs)
+            ev[1].record()
+            return out
 
     def _comm_round(self, state: ClientState, ci: int, z, y, rho, x0, yhat0,
                     mode: str = "plain", active=None, corrupt=None,
@@ -1006,11 +1058,14 @@ class BlockwiseFederatedTrainer(RoundKernel):
         if self.compressor.name != "none":
             # uplink-compress the deltas x_k - z: every update below (mean,
             # duals, BB) runs on the reconstructions the server sees
-            payload, comp_new = self.compressor.encode(x - z[None, :], comp)
-            if self._fused_coll and self.compressor.sparse:
-                # the k-sized payloads go over the wire themselves
-                mean_fn = make_sparse_fused_mean(payload, z, K, self.mesh)
-            x = z[None, :] + decode_stack(payload, self.compressor, x.shape[1])
+            with ranged("comm.encode", self._ranges):
+                payload, comp_new = self.compressor.encode(x - z[None, :],
+                                                           comp)
+                if self._fused_coll and self.compressor.sparse:
+                    # the k-sized payloads go over the wire themselves
+                    mean_fn = make_sparse_fused_mean(payload, z, K, self.mesh)
+                x = z[None, :] + decode_stack(payload, self.compressor,
+                                              x.shape[1])
             if partial and comp is not None:
                 # a non-participant's stream and residual stay untouched
                 comp_new = _sel(active, comp_new, comp)
@@ -1051,8 +1106,9 @@ class BlockwiseFederatedTrainer(RoundKernel):
                 x, z, y, rho, x0, yhat0,
                 BBConfig(cfg.bb_period_T, cfg.bb_alphacorrmin,
                          cfg.bb_epsilon, cfg.bb_rhomax), mesh=mesh)
-        znew, ynew, diag = self.algo.global_update(
-            x, z, y, rho, K, self.mesh, w=w, mean_fn=mean_fn)
+        with ranged("comm.mean", self._ranges):
+            znew, ynew, diag = self.algo.global_update(
+                x, z, y, rho, K, self.mesh, w=w, mean_fn=mean_fn)
         if guard_on:
             # an all-rejected round keeps z
             znew = torch.where(n_ok > 0, znew, z)
@@ -1063,10 +1119,12 @@ class BlockwiseFederatedTrainer(RoundKernel):
                               if probe else (None, None))
         params = state.params
         if self.algo.writeback:
-            wrote = codec.put_trainable_stack(
-                params, order, mask, znew.unsqueeze(0).expand(self.n_rows, -1))
-            # only the round's accepted participants receive z
-            params = _sel(w, wrote, params) if partial else wrote
+            with ranged("comm.update", self._ranges):
+                wrote = codec.put_trainable_stack(
+                    params, order, mask,
+                    znew.unsqueeze(0).expand(self.n_rows, -1))
+                # only the round's accepted participants receive z
+                params = _sel(w, wrote, params) if partial else wrote
         if partial:
             diag["n_active"] = self.mesh.psum(
                 [s.sum() for s in self.mesh.shards(active)])
@@ -1098,7 +1156,9 @@ class BlockwiseFederatedTrainer(RoundKernel):
                     self.test_y[b], self.test_w[b])
             totals.append(acc)
         totals = self.mesh.gather_rows(torch.stack(totals))
-        return self.eval_finalize(totals.cpu().numpy(), self.test_n)
+        with self._host_wait():
+            totals = totals.cpu().numpy()
+        return self.eval_finalize(totals, self.test_n)
 
     def _serve_export(self, state: ClientState):
         """The served consensus: the mean over the [K] client stack of
@@ -1167,8 +1227,9 @@ class BlockwiseFederatedTrainer(RoundKernel):
     # the loop nest
     # ------------------------------------------------------------------
     def _sync(self) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        with self._host_wait():
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
 
     def run(self, state: Optional[ClientState] = None,
             log: Callable[[str], None] = print,
@@ -1441,7 +1502,11 @@ class BlockwiseFederatedTrainer(RoundKernel):
         does not hold the read back."""
         if self.device.type != "cuda":
             host = [t.detach().cpu().numpy() for t in tensors]
-            return lambda: host
+
+            def wait_host():
+                with self._host_wait():
+                    return host
+            return wait_host
         flat = torch.cat([t.detach().reshape(-1).to(torch.float64)
                           for t in tensors])
         buf = torch.empty(flat.shape, dtype=torch.float64, pin_memory=True)
@@ -1450,7 +1515,8 @@ class BlockwiseFederatedTrainer(RoundKernel):
         event.record()
 
         def wait():
-            event.synchronize()
+            with self._host_wait():
+                event.synchronize()
             out, i = [], 0
             for t in tensors:
                 a = buf[i:i + t.numel()].numpy()
@@ -1463,12 +1529,39 @@ class BlockwiseFederatedTrainer(RoundKernel):
     def _step_round(self, obs, obs_images, state, blockvars, nloop, ci,
                     nadmm, N, history, checkpoint_path, log):
         """One communication round of block ``ci``; returns the state and
-        the block variables (z, y, rho, x0, yhat0) after it."""
+        the block variables (z, y, rho, x0, yhat0) after it.
+
+        With a recorder writing, the round record (not the history)
+        carries the round's instrumentation: ``epoch_host_seconds`` (the
+        host's stay in the local-epoch calls, a pre-launched epoch counted
+        in the round that launched it), ``step_forward_seconds``,
+        ``step_backward_seconds`` and ``step_optimizer_seconds`` (their
+        sums over the client-steps), ``eval_seconds``,
+        ``comm_device_seconds`` (on a card) and ``host_syncs``: the
+        round's sites where the host waits for the card
+        (:meth:`_host_wait`): each pageable host-to-device copy of an
+        epoch's rows or batches, ``_obs_sync``, ``_sync``, the wait for
+        the round's reads and the evaluation's read.  With device data
+        and evaluation that is 5 on a fused round and 3 an epoch + 4 on
+        an unfused one (5 an epoch + 4 on the host path); the same count
+        on the CPU, where nothing waits.  Partial rounds, the guard,
+        population, ``be_verbose``, a rank mesh's transport and the
+        mid-run save wait at further sites that are not counted."""
         cfg, algo = self.cfg, self.algo
         K, dev = cfg.K, self.device
         partial = self._block_flags(ci)[0]
         z, y, rho, x0, yhat0 = blockvars
         t_round = time.perf_counter()
+        # the round's instrumentation: host waits are counted from here;
+        # the step clock and the comm step's events run while a recorder
+        # writes, the ranges while a profiler records
+        self._host_syncs = 0
+        self._ranges = profiler_active()
+        self._step_clock = (StepClock(self._ranges)
+                            if obs.enabled or self._ranges else None)
+        self._comm_ev = ((torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+                         if obs.enabled and dev.type == "cuda" else None)
         self._sanitize_round = len(history)
         launches0 = _launch_counts()
         if self.mesh.processes > 1 and barrier_timeout() > 0:
@@ -1664,7 +1757,22 @@ class BlockwiseFederatedTrainer(RoundKernel):
             if self._fused_coll:
                 rec["bytes_fused"] = self.round_bytes_fused(N)
         if cfg.check_results:
-            rec["accuracy"] = self.evaluate(state)
+            t_eval = time.perf_counter()
+            with ranged("evaluate", self._ranges):
+                rec["accuracy"] = self.evaluate(state)
+            eval_s = time.perf_counter() - t_eval
+        # the round's instrumentation, for the round record only
+        extra_fields = {}
+        if obs.enabled:
+            extra_fields.update(self._step_clock.fields())
+            if cfg.check_results:
+                extra_fields["eval_seconds"] = eval_s
+            if self._comm_ev is not None and comm_ran:
+                # read after the round's wait: both events have completed
+                extra_fields["comm_device_seconds"] = self._comm_ev[
+                    0].elapsed_time(self._comm_ev[1]) / 1e3
+            extra_fields["host_syncs"] = self._host_syncs
+        self._step_clock = self._comm_ev = None
         history.append(rec)
         if nadmm + 1 < cfg.Nadmm:
             nxt = (nloop, ci, nadmm + 1)
@@ -1679,7 +1787,6 @@ class BlockwiseFederatedTrainer(RoundKernel):
             self._save_midrun(checkpoint_path, state, blockvars, nxt,
                               history)
             rec["ckpt_write_seconds"] = time.perf_counter() - t_ckpt
-        extra_fields = {}
         if cfg.async_rounds:
             extra_fields["async_mode"] = True
             # the cutoff in force: the control plane may have moved it

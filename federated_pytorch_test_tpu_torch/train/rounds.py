@@ -40,6 +40,7 @@ as numpy ``[K]`` float32 arrays; the engine moves them to its device.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import threading
@@ -94,6 +95,9 @@ class RoundKernel:
         Call once from the engine's ``__init__`` after ``self.cfg`` is
         set."""
         cfg = self.cfg
+        # the round's host waits on the card (round record ``host_syncs``;
+        # the engine resets it at round start)
+        self._host_syncs = 0
         self.faults = FaultSpec.parse(cfg.fault_spec)
         # soak campaign: _campaign_tick swaps self.faults for the window's
         # derived spec at every round entry; the parsed base (the disabled
@@ -839,12 +843,23 @@ class RoundKernel:
     # ------------------------------------------------------------------
     # observability: recorder, client record, spans, health, control
     # ------------------------------------------------------------------
+    @contextlib.contextmanager
+    def _host_wait(self, n: int = 1):
+        """A site where the round's host waits for the card, ``n`` times:
+        counted in ``_host_syncs`` (the round record's ``host_syncs``) on
+        any device, so that the count is the path's; a test's seam onto
+        every counted site."""
+        self._host_syncs += n
+        yield
+
     def _obs_sync(self, obs) -> None:
         """Close out queued device work at an obs phase boundary, so that
         the phase spans measure execution; only while a recorder writes
         (with obs off the round keeps its one sync)."""
-        if obs.enabled and self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        if obs.enabled:
+            with self._host_wait():
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
 
     def _open_obs(self, *, resumed: bool, rounds_prior: int):
         """Open this run's recorder (sinks from ``cfg.obs_sinks`` and
