@@ -2037,7 +2037,8 @@ def run_no_consensus(dev) -> None:
     """Phase 16: ``no_consensus_multi`` on ResNet18 (the whole net trains,
     Adam afresh every epoch); every epoch finite, every parameter tensor
     changed, Adam's step count restarting at 1 in every epoch of every
-    client; the epoch times and the peak device memory printed."""
+    client (eager or replayed); the epoch times and the peak device memory
+    printed."""
     import torch
 
     from federated_pytorch_test_tpu_torch.drivers import no_consensus_multi
@@ -2073,16 +2074,21 @@ def run_no_consensus(dev) -> None:
             np.isfinite(r["loss"]) and np.isfinite(r["accuracy"]).all()
             for r in history):
         fail(f"expected {NO_CONSENSUS_EPOCHS} finite epochs: {history}")
-    steps = len(counts) // (trainer.cfg.K * NO_CONSENSUS_EPOCHS)
-    if counts != list(range(1, steps + 1)) * trainer.cfg.K * \
-            NO_CONSENSUS_EPOCHS:
+    # the eager epochs call adam_step; replayed ones (after the first,
+    # train/step_graph.py) take their step counts from the same host
+    # count, which the final state shows restarted
+    steps = trainer.data.steps
+    eager = len(counts) // (trainer.cfg.K * steps)
+    if not eager or counts != list(range(1, steps + 1)) * trainer.cfg.K * \
+            eager or not bool((state.opt_state.count == steps).all()):
         fail("Adam's step count did not restart at 1 in every epoch")
     before, after = leaves(trainer.params0), leaves(state.params)
     unchanged = sum(torch.equal(a, b) for a, b in zip(before, after))
     if unchanged:
         fail(f"{unchanged} of {len(before)} parameter tensors did not change")
     log(f"no-consensus: {len(before)} parameter tensors all changed; "
-        f"{steps} Adam steps an epoch from count 1")
+        f"{steps} Adam steps an epoch from count 1 ({eager} of "
+        f"{NO_CONSENSUS_EPOCHS} epochs eager)")
 
 
 def run_fedprox(dev) -> None:

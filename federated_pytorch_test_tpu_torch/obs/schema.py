@@ -287,11 +287,16 @@ FIELDS: Dict[str, Any] = {
     # the port's round instrumentation (additive, no bump; present while
     # a recorder writes): host enqueue time of the local epoch and of its
     # client-steps' phases, evaluation, the comm step's CUDA-event time
-    # (on a card) and the round's host waits on the card
+    # (on a card) and the round's host waits on the card; the client-steps
+    # replayed from CUDA graphs, dispatched eagerly and the graphs captured
     "epoch_host_seconds": (("round",), _NUM),
     "step_forward_seconds": (("round",), _NUM),
     "step_backward_seconds": (("round",), _NUM),
     "step_optimizer_seconds": (("round",), _NUM),
+    "step_replay_seconds": (("round",), _NUM),
+    "graph_steps": (("round",), _INT),
+    "eager_steps": (("round",), _INT),
+    "graph_captures": (("round",), _INT),
     "eval_seconds": (("round",), _NUM),
     "comm_device_seconds": (("round",), _NUM),
     "host_syncs": (("round",), _INT),

@@ -115,6 +115,17 @@ round's wait) and ``host_syncs``, the round's host waits on the card (see
 :meth:`BlockwiseFederatedTrainer._step_round`).  While a profiler records,
 the step phases, the comm step's encode, mean and update, and the
 evaluation are ``record_function`` ranges inside ``comm_round#<n>``.
+
+On a card, an Adam block of a model without reparametrisation noise, with
+the sanitizer off, replays its client-steps from CUDA graphs
+(``train/step_graph.py``): the block's first epoch runs eagerly and the
+graphs, one a client row, are captured after it; each later epoch copies
+a client's and a step's inputs into fixed slots and replays.  The kernels
+and their order are the eager step's.  The round record counts the
+client-steps replayed (``graph_steps``) and dispatched (``eager_steps``),
+the graphs captured (``graph_captures``) and the host's time in the
+replays (``step_replay_seconds``); under a profiler each replay is a
+``client_step`` range.
 """
 
 from __future__ import annotations
@@ -181,6 +192,10 @@ from federated_pytorch_test_tpu_torch.train.losses import (
 from federated_pytorch_test_tpu_torch.obs import device_memory_stats
 from federated_pytorch_test_tpu_torch.obs.health import RunHealthAbort
 from federated_pytorch_test_tpu_torch.train.rounds import RoundKernel
+from federated_pytorch_test_tpu_torch.train.step_graph import (
+    ClientStepGraphs,
+    Slots,
+)
 from federated_pytorch_test_tpu_torch.utils import blocks as blocklib
 from federated_pytorch_test_tpu_torch.utils import checkpoint as ckpt
 from federated_pytorch_test_tpu_torch.utils import codec
@@ -193,6 +208,7 @@ from federated_pytorch_test_tpu_torch.utils.profiling import (
     round_trace,
 )
 from federated_pytorch_test_tpu_torch.utils.tree import (
+    get_by_path,
     leaves,
     map_leaves,
     tree_map,
@@ -241,17 +257,28 @@ class AdamState(NamedTuple):
     count: torch.Tensor    # [K] int64, on the host (read a step, no sync)
 
 
-def adam_step(x, g, mu, nu, count: int, lr: float):
-    """One optax.adam update of the flat vector ``x``: the same formula in
-    the same order (moments, bias corrections in float32, ``mu_hat /
-    (sqrt(nu_hat) + eps)``, times ``-lr``).  Returns (x, mu, nu)."""
+def adam_bias_corrections(count: int, device):
+    """optax.adam's bias corrections at step ``count``, in float32 on
+    ``device``: ``(1 - b1**count, 1 - b2**count)``."""
+    one = torch.ones((), dtype=torch.float32, device=device)
+    return one - (one * ADAM_B1) ** count, one - (one * ADAM_B2) ** count
+
+
+def adam_update(x, g, mu, nu, bc1, bc2, lr: float):
+    """One optax.adam update of the flat vector ``x`` with the bias
+    corrections ``bc1``, ``bc2`` (0-d tensors on ``x``'s device): the same
+    formula in the same order (moments, ``mu_hat / (sqrt(nu_hat) +
+    eps)``, times ``-lr``).  Returns (x, mu, nu)."""
     mu = (1 - ADAM_B1) * g + ADAM_B1 * mu
     nu = (1 - ADAM_B2) * (g * g) + ADAM_B2 * nu
-    one = torch.ones((), dtype=torch.float32, device=x.device)
-    bc1 = one - (one * ADAM_B1) ** count
-    bc2 = one - (one * ADAM_B2) ** count
     u = (mu / bc1) / (torch.sqrt(nu / bc2) + ADAM_EPS)
     return x + u * (-lr), mu, nu
+
+
+def adam_step(x, g, mu, nu, count: int, lr: float):
+    """:func:`adam_update` at step ``count``.  Returns (x, mu, nu)."""
+    return adam_update(x, g, mu, nu, *adam_bias_corrections(count, x.device),
+                       lr)
 
 
 def _launch_counts() -> Dict[str, int]:
@@ -439,6 +466,9 @@ class BlockwiseFederatedTrainer(RoundKernel):
         self._step_clock: Optional[StepClock] = None
         self._ranges = False
         self._comm_ev = None
+        # the local epoch's client-step graphs (_train_epoch)
+        self._step_graphs = ClientStepGraphs(self.device,
+                                             adam_bias_corrections)
         # the staging look-ahead (cfg.overlap_staging): (counter, payload,
         # needs_finish), and the pre-launched epoch (cfg.overlap_round):
         # (coords, counter, (state, losses))
@@ -821,11 +851,13 @@ class BlockwiseFederatedTrainer(RoundKernel):
         return out
 
     def close(self) -> None:
-        """Release the stage pool (a pending prefetch is dropped) and drain
-        the async checkpoint writer, so an aborted run's last submitted
-        round is still on disk; a write failure here does not mask the
-        exception that ended the run (a normal exit re-raises it)."""
+        """Release the stage pool (a pending prefetch is dropped) and the
+        client-step graphs, and drain the async checkpoint writer, so an
+        aborted run's last submitted round is still on disk; a write
+        failure here does not mask the exception that ended the run (a
+        normal exit re-raises it)."""
         self._pending = self._staged_ahead = self._round_ahead = None
+        self._step_graphs.release()
         if self._stage_pool is not None:
             self._stage_pool.shutdown(wait=True)
             self._stage_pool = None
@@ -895,17 +927,83 @@ class BlockwiseFederatedTrainer(RoundKernel):
         the others keep their parameters, statistics and optimizer state
         bit for bit and their loss reads 0.  ``norm``: the [rows, 2, 3]
         normalisation of this process's slots (default the clients'
-        own)."""
-        cfg, algo = self.cfg, self.algo
-        order, mask = self.order, self.mask_for_block(ci)
-        lam1, lam2 = self.reg_for_block(ci)
-        reg_on = lam1 != 0.0 or lam2 != 0.0
+        own).
+
+        Where :meth:`_graphs_sound` holds, the client-steps replay from
+        the CUDA graphs of ``train/step_graph.py``: an epoch whose graphs
+        are not held (a block's first, or one after its frozen leaves
+        moved) runs eagerly and captures them after it, and the next
+        epochs replay them.  Elsewhere every epoch runs eagerly."""
+        norm = self.client_norm if norm is None else norm
+        if not self._graphs_sound(ci):
+            return self._eager_epoch(state, ci, y, z, rho, xb, yb, wb,
+                                     counter, active, norm)
+        graphs = self._step_graphs
+        graphs.reserve(int(state.opt_state.count.max()) + xb.shape[1])
+        key = self._graph_key(state, ci, y, xb, yb, wb)
+        if graphs.ready(key):
+            return self._replay_epoch(state, ci, y, z, rho, xb, yb, wb,
+                                      active, norm)
+        graphs.release()
+        out = self._eager_epoch(state, ci, y, z, rho, xb, yb, wb, counter,
+                                active, norm)
+        n = self._capture_step_graphs(key, state, ci, y, rho, norm, xb, yb,
+                                      wb)
+        if self._step_clock is not None:
+            self._step_clock.graph_captures += n
+        return out
+
+    def _graphs_sound(self, ci: Optional[int]) -> bool:
+        """Whether block ``ci``'s client-steps can replay from CUDA graphs:
+        on a card, for an Adam block (an L-BFGS step's line search reads
+        the host), of a model without reparametrisation noise (a
+        host-seeded draw a step), with the sanitizer off (it checks every
+        operation as it runs)."""
+        return (self.device.type == "cuda"
+                and self.optimizer_for_block(ci) == "adam"
+                and self.noise_shape is None and self._sanitizer is None)
+
+    def _graph_key(self, state: ClientState, ci, y, xb, yb, wb) -> tuple:
+        """What the client-step graphs of block ``ci`` bake in: the block,
+        its learning rate and regularisation, the address, shape and
+        strides of every frozen leaf (read in place), the statistics',
+        duals' and one step's shapes and dtypes."""
+        mask = self.mask_for_block(ci)
+        frozen = tuple((t.data_ptr(), tuple(t.shape), t.stride())
+                       for t in (get_by_path(state.params, p)
+                                 for p in self.order
+                                 if not get_by_path(mask, p)))
+        shapes = tuple((tuple(t.shape), t.dtype) for t in (
+            *leaves(state.batch_stats), y, xb[0, 0], yb[0, 0], wb[0, 0]))
+        return (ci, self.lr_for_block(ci), self.reg_for_block(ci), frozen,
+                shapes)
+
+    def _step_loss(self, v, pk, bsk, xn, yb, wb, noise, z, yk, rho, mask,
+                   reg):
+        """One client-step's loss on the flat block ``v`` -> (loss, new
+        batch_stats): the model's loss with ``v`` in the active leaves of
+        the client's parameters ``pk``, plus the algorithm's penalty
+        against ``z``, the client's dual ``yk`` and ``rho``, plus the L1/L2
+        term of ``reg`` = (lambda1, lambda2) unless both are 0."""
+        p = codec.put_trainable_values(pk, self.order, mask, v)
+        loss, new_bs = self.model_loss(p, bsk, xn, yb, wb, noise)
+        loss = loss + self.algo.penalty(v, z, yk, rho)
+        if reg[0] != 0.0 or reg[1] != 0.0:
+            loss = loss + l1_l2(v, *reg)
+        return loss, new_bs
+
+    def _eager_epoch(self, state: ClientState, ci: Optional[int], y, z, rho,
+                     xb, yb, wb, counter, active, norm):
+        """:meth:`_train_epoch` with every client-step dispatched from
+        Python."""
+        cfg = self.cfg
+        mask = self.mask_for_block(ci)
+        reg = self.reg_for_block(ci)
         lbfgs = self.optimizer_for_block(ci) == "lbfgs"
         lr = self.lr_for_block(ci)
-        norm = self.client_norm if norm is None else norm
         opt = state.opt_state
         sc = self._step_clock
-        X = codec.get_trainable_stack(state.params, order, mask)
+        X = codec.get_trainable_stack(state.params, self.order, mask)
         xs, opts, bss, losses = [], [], [], []
         steps = xb.shape[1]
         zero = torch.zeros((), dtype=torch.float32, device=self.device)
@@ -931,13 +1029,9 @@ class BlockwiseFederatedTrainer(RoundKernel):
                                    xb.shape[2])
 
                 def batch_loss(v, xn=xn, step=step, bsk=bsk, noise=noise):
-                    p = codec.put_trainable_values(pk, order, mask, v)
-                    loss, new_bs = self.model_loss(p, bsk, xn, yb[j, step],
-                                                   wb[j, step], noise)
-                    loss = loss + algo.penalty(v, z, y[j], rho)
-                    if reg_on:
-                        loss = loss + l1_l2(v, lam1, lam2)
-                    return loss, new_bs
+                    return self._step_loss(v, pk, bsk, xn, yb[j, step],
+                                           wb[j, step], noise, z, y[j], rho,
+                                           mask, reg)
 
                 if lbfgs:
                     # the closure is the flat loss of the active block; a
@@ -964,20 +1058,116 @@ class BlockwiseFederatedTrainer(RoundKernel):
                 if sc is not None:
                     sc.stop()
                 step_losses.append(loss.detach())
+            if sc is not None:
+                sc.eager_steps += steps
             xs.append(xk)
             opts.append(ok)
             bss.append(bsk)
             losses.append(torch.stack(step_losses).sum())
-        params = codec.put_trainable_stack(state.params, order, mask,
+        params = codec.put_trainable_stack(state.params, self.order, mask,
                                            torch.stack(xs))
         batch_stats = tree_stack(bss) if self.has_bn else state.batch_stats
         if not lbfgs:
-            ran = (torch.ones(self.n_rows, dtype=torch.int64)
-                   if active is None else
-                   torch.from_numpy(self._own(np.asarray(active) > 0)).long())
             opts = AdamState(torch.stack([m for m, _ in opts]),
                              torch.stack([n for _, n in opts]),
-                             opt.count + steps * ran)
+                             opt.count + steps * self._ran(active))
+        return (ClientState(params, batch_stats, opts, state.comp),
+                torch.stack(losses))
+
+    def _ran(self, active) -> torch.Tensor:
+        """[rows] int64 on the host: 1 for the rows that trained."""
+        return (torch.ones(self.n_rows, dtype=torch.int64) if active is None
+                else torch.from_numpy(
+                    self._own(np.asarray(active) > 0)).long())
+
+    def _capture_step_graphs(self, key, state: ClientState, ci, y, rho, norm,
+                             xb, yb, wb) -> int:
+        """Capture block ``ci``'s client-step graphs over fresh slots, one a
+        client row (``train/step_graph.py``): the eager Adam step, its
+        outputs copied into the slots and row ``j`` of the statistics
+        buffers.  Returns the number captured."""
+        graphs = self._step_graphs
+        mask = self.mask_for_block(ci)
+        reg = self.reg_for_block(ci)
+        lr = self.lr_for_block(ci)
+        x = state.opt_state.mu
+        s = Slots.like(x, y, rho, norm, xb, yb, wb)
+        stats = tree_map(torch.zeros_like, state.batch_stats)
+
+        def step(j: int) -> None:
+            pk = tree_map(lambda t: t[j], state.params)
+            bsj = tree_map(lambda t: t[j], stats)
+            v = s.x.detach().requires_grad_(True)
+            loss, new_bs = self._step_loss(
+                v, pk, bsj, _normalize_u8(s.images, s.norm), s.labels,
+                s.weights, None, s.z, s.y, s.rho, mask, reg)
+            (g,) = torch.autograd.grad(loss, v)
+            with torch.no_grad():
+                count = s.count + 1
+                xk, mu, nu = adam_update(s.x, g, s.mu, s.nu,
+                                         *graphs.bias(count), lr)
+                for dst, src in zip(
+                        (s.count, s.x, s.mu, s.nu, s.loss, *leaves(bsj)),
+                        (count, xk, mu, nu, loss, *leaves(new_bs))):
+                    dst.copy_(src)
+
+        # the capture waits for the card once (ClientStepGraphs.capture)
+        with self._host_wait():
+            return graphs.capture(key, self.n_rows, s, stats, step)
+
+    def _replay_epoch(self, state: ClientState, ci: Optional[int], y, z,
+                      rho, xb, yb, wb, active, norm):
+        """:meth:`_train_epoch` with every client-step replayed from the
+        captured graphs: a client's block vector, moments, step count,
+        dual row and normalisation go into the slots before its first
+        step and its vector and moments out after its last; each step's
+        rows go in before its replay and its loss out after it."""
+        graphs = self._step_graphs
+        s, sc = graphs.slots, self._step_clock
+        mask = self.mask_for_block(ci)
+        opt = state.opt_state
+        X = codec.get_trainable_stack(state.params, self.order, mask)
+        mu, nu = torch.empty_like(opt.mu), torch.empty_like(opt.nu)
+        steps = xb.shape[1]
+        step_losses = torch.empty((self.n_rows, steps), dtype=torch.float32,
+                                  device=self.device)
+        zero = torch.zeros((), dtype=torch.float32, device=self.device)
+        s.z.copy_(z)
+        s.rho.copy_(rho)
+        for dst, src in zip(leaves(graphs.stats), leaves(state.batch_stats)):
+            dst.copy_(src)
+        losses = []
+        for j, k in enumerate(self.rows):
+            if active is not None and not active[k] > 0:
+                mu[j].copy_(opt.mu[j])
+                nu[j].copy_(opt.nu[j])
+                losses.append(zero)
+                continue
+            for dst, src in ((s.x, X[j]), (s.mu, opt.mu[j]),
+                             (s.nu, opt.nu[j]), (s.y, y[j]),
+                             (s.norm, norm[j])):
+                dst.copy_(src)
+            s.count.fill_(int(opt.count[j]))
+            graph = graphs.graphs[j]
+            for step in range(steps):
+                if sc is not None:
+                    sc.start(StepClock.REPLAY)
+                s.images.copy_(xb[j, step])
+                s.labels.copy_(yb[j, step])
+                s.weights.copy_(wb[j, step])
+                graph.replay()
+                step_losses[j, step].copy_(s.loss)
+            if sc is not None:
+                sc.stop()
+                sc.graph_steps += steps
+            X[j].copy_(s.x)
+            mu[j].copy_(s.mu)
+            nu[j].copy_(s.nu)
+            losses.append(step_losses[j].sum())
+        params = codec.put_trainable_stack(state.params, self.order, mask, X)
+        batch_stats = (tree_map(torch.clone, graphs.stats) if self.has_bn
+                       else state.batch_stats)
+        opts = AdamState(mu, nu, opt.count + steps * self._ran(active))
         return (ClientState(params, batch_stats, opts, state.comp),
                 torch.stack(losses))
 
@@ -1536,7 +1726,9 @@ class BlockwiseFederatedTrainer(RoundKernel):
         host's stay in the local-epoch calls, a pre-launched epoch counted
         in the round that launched it), ``step_forward_seconds``,
         ``step_backward_seconds`` and ``step_optimizer_seconds`` (their
-        sums over the client-steps), ``eval_seconds``,
+        sums over the eager client-steps), ``step_replay_seconds`` (over
+        the replayed ones), ``graph_steps``, ``eager_steps`` and
+        ``graph_captures`` (:meth:`_train_epoch`), ``eval_seconds``,
         ``comm_device_seconds`` (on a card) and ``host_syncs``: the
         round's sites where the host waits for the card
         (:meth:`_host_wait`): each pageable host-to-device copy of an

@@ -85,17 +85,25 @@ class StepClock:
     starts phase ``i``, :meth:`stop` ends it: one ``time.perf_counter_ns``
     read each, no device sync, nothing allocated.  With ``ranges`` (a
     profiler records) each phase is also a ``record_function`` range of
-    its name."""
+    its name.
 
-    PHASES = ("forward", "backward", "optimizer")
-    FORWARD, BACKWARD, OPTIMIZER = range(3)
+    The forward, backward and optimizer phases time eager client-steps;
+    ``client_step`` times a replayed one (its input copies, the graph's
+    launch and its loss's copy out, ``train/step_graph.py``).  The counts
+    say which ran: ``graph_steps`` client-steps replayed, ``eager_steps``
+    dispatched eagerly, ``graph_captures`` client-step graphs captured."""
 
-    __slots__ = ("ns", "epoch_ns", "ranges", "_cur", "_t", "_range")
+    PHASES = ("forward", "backward", "optimizer", "client_step")
+    FORWARD, BACKWARD, OPTIMIZER, REPLAY = range(4)
+
+    __slots__ = ("ns", "epoch_ns", "ranges", "graph_steps", "eager_steps",
+                 "graph_captures", "_cur", "_t", "_range")
 
     def __init__(self, ranges: bool = False):
-        self.ns = [0, 0, 0]
+        self.ns = [0, 0, 0, 0]
         self.epoch_ns = 0
         self.ranges = ranges
+        self.graph_steps = self.eager_steps = self.graph_captures = 0
         self._cur = -1
         self._t = 0
         self._range = None
@@ -123,8 +131,12 @@ class StepClock:
             self._range = None
 
     def fields(self) -> dict:
-        """The round record's fields, in seconds."""
-        fwd, bwd, opt = (n / 1e9 for n in self.ns)
+        """The round record's fields: the times in seconds, the counts."""
+        fwd, bwd, opt, replay = (n / 1e9 for n in self.ns)
         return {"step_forward_seconds": fwd, "step_backward_seconds": bwd,
                 "step_optimizer_seconds": opt,
-                "epoch_host_seconds": self.epoch_ns / 1e9}
+                "step_replay_seconds": replay,
+                "epoch_host_seconds": self.epoch_ns / 1e9,
+                "graph_steps": self.graph_steps,
+                "eager_steps": self.eager_steps,
+                "graph_captures": self.graph_captures}

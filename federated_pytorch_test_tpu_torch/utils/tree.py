@@ -20,18 +20,18 @@ def get_by_path(tree: Mapping[str, Any], path: str) -> Any:
 
 
 def set_by_path(tree: Mapping[str, Any], path: str, value: Any) -> dict:
-    """Return a copy of ``tree`` with the leaf at ``path`` replaced."""
-    parts = path.split("/")
-
-    def rec(node: Mapping[str, Any], i: int) -> dict:
-        out = dict(node)
-        if i == len(parts) - 1:
-            out[parts[i]] = value
-        else:
-            out[parts[i]] = rec(node[parts[i]], i + 1)
-        return out
-
-    return rec(tree, 0)
+    """Return a copy of ``tree`` with the leaf at ``path`` replaced: the
+    dicts along the path are copied, the rest is shared.  A loop, not a
+    recursive closure: a closure that calls itself is a reference cycle,
+    which would hold ``value`` until the garbage collector runs."""
+    *heads, last = path.split("/")
+    out = node = dict(tree)
+    for part in heads:
+        child = dict(node[part])
+        node[part] = child
+        node = child
+    node[last] = value
+    return out
 
 
 def tree_map(fn: Callable[[Any], Any], tree: Mapping[str, Any]) -> dict:

@@ -110,3 +110,37 @@ def test_stacked_state_bridge_roundtrip():
     assert t["conv"]["kernel"].shape == (3, 5, 4, 2, 2)       # [K, O, I, H, W]
     back = bridge.tree_to_jax(t, stacked=True)
     jax.tree.map(np.testing.assert_array_equal, back, tree)
+
+
+
+def test_put_leaves_no_cycle_holding_the_vector():
+    """``put_trainable_stack`` and ``put_trainable_values`` build their
+    trees without reference cycles: once the returned tree is dropped, its
+    new leaves (and the flat vector they view) are freed at once, not when
+    the garbage collector next runs."""
+    import gc
+    import weakref
+
+    from federated_pytorch_test_tpu_torch.models.simple import Net
+    from federated_pytorch_test_tpu_torch.utils.tree import get_by_path
+
+    params, _ = Net().init_variables(torch.Generator().manual_seed(0))
+    order = list(Net().param_order())
+    paths = tblocks.block_paths(order, Net().train_order_block_ids()[0])
+    mask = tblocks.build_mask(params, paths)
+    stacked = {k: {n: t.unsqueeze(0).repeat(2, *([1] * t.dim()))
+                   for n, t in v.items()} for k, v in params.items()}
+    gc.collect()
+    gc.disable()
+    try:
+        X = tcodec.get_trainable_stack(stacked, order, mask)
+        out = tcodec.put_trainable_stack(stacked, order, mask, X + 1)
+        new = [weakref.ref(get_by_path(out, p)) for p in paths]
+        v = X[0].clone()
+        views = tcodec.put_trainable_values(params, order, mask, v)
+        vec = weakref.ref(v)
+        del out, views, v
+        assert vec() is None
+        assert all(r() is None for r in new)
+    finally:
+        gc.enable()

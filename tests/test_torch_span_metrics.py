@@ -33,3 +33,18 @@ def test_reader_is_the_mean_of_its_field(metric):
     assert (entry["source"], entry["moves"]) == ("program_span",
                                                  "train_images_per_s")
     assert "workloads" not in entry
+
+
+def test_graph_step_share_is_the_replayed_share_of_the_client_steps():
+    read = speclib.reader("graph_step_share")
+    rec = lambda g, e: {"graph_steps": g, "eager_steps": e, "loss": 1.0}
+    assert read(SimpleNamespace(rounds=[rec(100, 0), rec(90, 0)])) == 100.0
+    assert read(SimpleNamespace(rounds=[rec(0, 100), rec(100, 0)])) == 50.0
+    assert read(SimpleNamespace(rounds=[rec(0, 100)])) == 0.0
+    for rounds in ([], [{"loss": 1.0}], [rec(0, 0)]):
+        assert read(SimpleNamespace(rounds=rounds)) is None
+    (entry,) = [m for m in speclib.benchmark()["per_layer"]
+                if m["name"] == "graph_step_share"]
+    assert entry == {"name": "graph_step_share", "unit": "%",
+                     "better": "higher", "source": "program_counter",
+                     "layer": "local epoch", "moves": "train_images_per_s"}
